@@ -1,0 +1,245 @@
+"""REP3: 3-party replicated secret sharing over torch limb tensors.
+
+Party i holds (a = x_i, b = x_{i-1}) of x = x0 + x1 + x2.
+  * PRF setup: each party samples a seed and sends it to the next party ->
+    correlated streams (self, prev) that always advance in lockstep.
+  * mul = 3-term local cross product + zero-masked reshare (one round)
+  * open = send b next / recv prev
+  * MSM/FFT are share-local per component
+
+All share payloads are Montgomery limb tensors (L, N); whole vectors are
+batched into ONE round.  The binary domain, sqrt_many and inv_many are not
+part of this slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from ..fields.params import CurveParams
+from ..ops.curve import CurveOps, ProjPoint, pmap
+from ..ops.field import Field, broadcast_shapes
+from ..utils.chacha import ChaChaStream, fresh_seed
+from .driver import Driver, as_index, scalar_mul_many, segment_sum_mont
+from .net import Network
+
+
+class Rep3FieldShare(NamedTuple):
+    a: Any  # (L, *batch)
+    b: Any
+
+
+class Rep3PointShare(NamedTuple):
+    a: ProjPoint
+    b: ProjPoint
+
+
+class Rep3Rngs:
+    """Correlated ChaCha12 streams keyed with the exchanged 256-bit seeds.
+    Domain 0 (the counter-mode nonce word) is the main stream: masking and
+    random shares.  The streams live on `device`: the card unless named."""
+
+    def __init__(self, seed_self: bytes | int, seed_prev: bytes | int, device=None):
+        self.rng1 = ChaChaStream(seed_self, domain=0, device=device)
+        self.rng2 = ChaChaStream(seed_prev, domain=0, device=device)
+
+    def random_fes(self, f: Field, shape=()):
+        """(r_self, r_prev) — a valid random share pair."""
+        return self.rng1.rand_mont(f, shape), self.rng2.rand_mont(f, shape)
+
+    def masking_field(self, f: Field, shape=()):
+        """r_self - r_prev: sums to zero over the 3 parties."""
+        a, b = self.random_fes(f, shape)
+        return f.sub(a, b)
+
+
+def share_field_vec(f: Field, vec_mont, seed: bytes | int | None = None):
+    """Dealer-side: split (L, N) Montgomery values into 3 REP3 shares.
+
+    Mask entropy is a 256-bit ChaCha key (fresh OS entropy unless a test
+    passes an explicit seed, which is SHA-256-expanded)."""
+    stream = ChaChaStream(fresh_seed() if seed is None else seed, domain=0,
+                          device=vec_mont.device)
+    batch = vec_mont.shape[1:]
+    x0 = stream.rand_mont(f, batch)
+    x1 = stream.rand_mont(f, batch)
+    x2 = f.sub(f.sub(vec_mont, x0), x1)
+    return [
+        Rep3FieldShare(x0, x2),
+        Rep3FieldShare(x1, x0),
+        Rep3FieldShare(x2, x1),
+    ]
+
+
+def combine_field_shares(f: Field, shares: list[Rep3FieldShare]):
+    return f.add(f.add(shares[0].a, shares[1].a), shares[2].a)
+
+
+class Rep3Driver(Driver):
+    protocol = "rep3"
+
+    def __init__(self, curve: CurveParams, net: Network, device=None):
+        super().__init__(curve, device=device)
+        self.net = net
+        self.id = net.id
+        # PRF setup: exchange 256-bit seeds with the next party
+        seed_self = fresh_seed()
+        net.send_next(seed_self)
+        seed_prev = bytes(net.recv_prev())
+        if len(seed_prev) != 32:
+            raise ValueError("PRF setup: peer seed must be 32 bytes")
+        self.rngs = Rep3Rngs(seed_self, seed_prev, device=self.device)
+
+    def _recv_tensor(self, obj):
+        return pmap(lambda t: t.to(self.device), obj)
+
+    # ------------------------------------------------------- share algebra
+
+    def promote_public(self, vals_mont):
+        z = torch.zeros_like(vals_mont)
+        if self.id == 0:
+            return Rep3FieldShare(vals_mont, z)
+        if self.id == 1:
+            return Rep3FieldShare(z, vals_mont)
+        return Rep3FieldShare(z, z)
+
+    def add(self, x: Rep3FieldShare, y: Rep3FieldShare):
+        return Rep3FieldShare(self.fr.add(x.a, y.a), self.fr.add(x.b, y.b))
+
+    def sub(self, x, y):
+        return Rep3FieldShare(self.fr.sub(x.a, y.a), self.fr.sub(x.b, y.b))
+
+    def mul_public(self, x, p):
+        return Rep3FieldShare(self.fr.mont_mul(x.a, p), self.fr.mont_mul(x.b, p))
+
+    def mul_vec(self, x: Rep3FieldShare, y: Rep3FieldShare):
+        """ONE communication round for the whole vector."""
+        f = self.fr
+        batch = broadcast_shapes(x.a.shape[1:], y.a.shape[1:])
+        local = f.add(
+            f.add(f.mont_mul(x.a, y.a), f.mont_mul(x.a, y.b)),
+            f.mont_mul(x.b, y.a),
+        )
+        local = f.add(local, self.rngs.masking_field(f, batch))
+        self.net.send_next(local)
+        prev = self._recv_tensor(self.net.recv_prev())
+        return Rep3FieldShare(local, prev)
+
+    mul = mul_vec
+
+    def rand(self, shape=()):
+        a, b = self.rngs.random_fes(self.fr, shape)
+        return Rep3FieldShare(a, b)
+
+    def open_many(self, x: Rep3FieldShare):
+        self.net.send_next(x.b)
+        c = self._recv_tensor(self.net.recv_prev())
+        return self.fr.add(self.fr.add(x.a, x.b), c)
+
+    def gather(self, x: Rep3FieldShare, idx):
+        idx = as_index(idx, x.a.device)
+        return Rep3FieldShare(x.a.index_select(1, idx), x.b.index_select(1, idx))
+
+    def concat(self, *vecs):
+        return Rep3FieldShare(
+            torch.cat([v.a for v in vecs], dim=1),
+            torch.cat([v.b for v in vecs], dim=1),
+        )
+
+    def set_slice(self, x, lo, values: Rep3FieldShare):
+        n = values.a.shape[1]
+        a, b = x.a.clone(), x.b.clone()
+        a[:, lo: lo + n] = values.a
+        b[:, lo: lo + n] = values.b
+        return Rep3FieldShare(a, b)
+
+    def segment_sum(self, values: Rep3FieldShare, seg_ids, num_segments):
+        ids = as_index(seg_ids, values.a.device)
+        return Rep3FieldShare(
+            segment_sum_mont(self.fr, values.a, ids, num_segments),
+            segment_sum_mont(self.fr, values.b, ids, num_segments),
+        )
+
+    # ------------------------------------------------------------- FFT
+
+    def fft(self, x: Rep3FieldShare):
+        return Rep3FieldShare(self.ntt.ntt(x.a), self.ntt.ntt(x.b))
+
+    def ifft(self, x):
+        return Rep3FieldShare(self.ntt.intt(x.a), self.ntt.intt(x.b))
+
+    def coset_shift(self, x, g=None):
+        return Rep3FieldShare(
+            self.ntt.coset_shift(x.a, g), self.ntt.coset_shift(x.b, g)
+        )
+
+    # ------------------------------------------------------------- EC
+
+    def to_scalars(self, x: Rep3FieldShare):
+        return Rep3FieldShare(self.fr.from_mont(x.a), self.fr.from_mont(x.b))
+
+    def msm_g1(self, points: ProjPoint, share_vec: Rep3FieldShare):
+        return self._msm(self.msm_g1_engine, points, share_vec)
+
+    def msm_g2(self, points, share_vec):
+        return self._msm(self.msm_g2_engine, points, share_vec)
+
+    def _msm(self, engine, points, share_vec):
+        """Both share components through one engine call: the waves run per
+        component, bucket reduction and Horner once for the two."""
+        s = self.to_scalars(share_vec)
+        res = engine.msm_many(points, [s.a, s.b])
+        return Rep3PointShare(pmap(lambda c: c[..., 0], res),
+                              pmap(lambda c: c[..., 1], res))
+
+    def scalar_mul_public_point(self, ops: CurveOps, point: ProjPoint, share):
+        s = self.to_scalars(share)
+        ra, rb = scalar_mul_many(ops, [point, point], [s.a, s.b])
+        return Rep3PointShare(ra, rb)
+
+    def _generator(self, ops: CurveOps) -> ProjPoint:
+        gen = ops.encode_points(
+            [self.curve.g1_gen if ops is self.g1 else self.curve.g2_gen])
+        return pmap(lambda c: c[..., 0], gen)
+
+    def scalar_mul(self, ops: CurveOps, pt: Rep3PointShare, s: Rep3FieldShare):
+        """Shared point x shared scalar: 1 round.  The three cross terms and
+        the zero-sharing mask m*G run as one batched double-and-add."""
+        f = self.fr
+        m = self.rngs.masking_field(f, tuple(s.a.shape[1:]))
+        sa, sb, sm = f.from_mont(s.a), f.from_mont(s.b), f.from_mont(m)
+        t1, t2, t3, mask = scalar_mul_many(
+            ops, [pt.a, pt.b, pt.a, self._generator(ops)], [sa, sa, sb, sm])
+        local = ops.add(ops.add(t1, t2), ops.add(t3, mask))
+        self.net.send_next(local)
+        prev = self._recv_tensor(self.net.recv_prev())
+        return Rep3PointShare(local, ProjPoint(*prev))
+
+    def point_add(self, ops: CurveOps, x: Rep3PointShare, y: Rep3PointShare):
+        return Rep3PointShare(ops.add(x.a, y.a), ops.add(x.b, y.b))
+
+    def point_sub(self, ops, x, y):
+        return Rep3PointShare(
+            ops.add(x.a, ops.neg(y.a)), ops.add(x.b, ops.neg(y.b))
+        )
+
+    def point_add_public(self, ops: CurveOps, x: Rep3PointShare, p: ProjPoint):
+        if self.id == 0:
+            return Rep3PointShare(ops.add(x.a, p), x.b)
+        if self.id == 1:
+            return Rep3PointShare(x.a, ops.add(x.b, p))
+        return x
+
+    def open_point(self, ops: CurveOps, x: Rep3PointShare):
+        self.net.send_next(x.b)
+        c = self._recv_tensor(self.net.recv_prev())
+        return ops.add(ops.add(x.a, x.b), ProjPoint(*c))
+
+    def open_two_points(self, x: Rep3PointShare, y: Rep3PointShare):
+        self.net.send_next((x.b, y.b))
+        cx, cy = self._recv_tensor(self.net.recv_prev())
+        g1 = self.g1.add(self.g1.add(x.a, x.b), ProjPoint(*cx))
+        g2 = self.g2.add(self.g2.add(y.a, y.b), ProjPoint(*cy))
+        return g1, g2

@@ -1,0 +1,360 @@
+"""Lazy builder, loader and wrappers of the hand-written CUDA kernels.
+
+The sources live in ``cocircom_tpu_torch/csrc`` (one ``.cu`` per kernel over
+the shared header ``field.cuh``).  At first use every source is compiled by
+its own ``nvcc`` process, all started together, into
+``cocircom_tpu_torch/_build/<hash of the sources>/`` as a shared library
+with a plain C interface, and loaded with ``ctypes``.  Importing this
+module needs neither ``nvcc`` nor a card.
+
+Each wrapper checks device, dtype, shape and contiguity and raises on what
+the kernel does not take, allocates outputs with ``torch.empty``, launches
+on ``torch.cuda.current_stream()``, raises if the C function returns a
+non-zero ``cudaGetLastError()``, and adds one to its launch count.  There is
+no fallback: a wrapper launches its kernel or raises.  The plain PyTorch
+version of each kernel lives beside its caller (ops/field.py, ops/ntt.py,
+ops/curve.py) and is taken there only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+# one .cu (and one shared library) per source; every counted entry point
+SOURCES = ("mont_mul", "ntt_butterfly", "ntt_columns", "ec_add", "ec_madd")
+KERNELS = SOURCES + ("ec_add_g2",)
+_ENTRY_SOURCE = {"ec_add_g2": "ec_add"}  # entry points that share a source
+L = 8  # 32-bit limbs per element (BN254 Fr and Fq)
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_libs: dict = {}
+_counts = {k: 0 for k in KERNELS}
+_count_lock = threading.Lock()
+
+
+# ------------------------------------------------------------------ shapes
+
+def broadcast_shapes(a, b) -> tuple:
+    """Broadcast of two batch shapes (a light stand-in for
+    torch.broadcast_shapes, which is slow for how often it runs here)."""
+    a, b = tuple(a), tuple(b)
+    if a == b:
+        return a
+    if len(a) < len(b):
+        a = (1,) * (len(b) - len(a)) + a
+    elif len(b) < len(a):
+        b = (1,) * (len(a) - len(b)) + b
+    out = []
+    for x, y in zip(a, b):
+        if x != y and x != 1 and y != 1:
+            raise ValueError(f"shapes {a} and {b} do not broadcast")
+        out.append(y if x == 1 else x)
+    return tuple(out)
+
+
+# ------------------------------------------------------------ launch counts
+
+def _count(name: str) -> None:
+    with _count_lock:
+        _counts[name] += 1
+
+
+def launch_counts() -> dict:
+    with _count_lock:
+        return dict(_counts)
+
+
+def reset_launch_counts() -> None:
+    with _count_lock:
+        for k in _counts:
+            _counts[k] = 0
+
+
+# ------------------------------------------------------------------ build
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc")
+    if exe is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        exe = "/usr/local/cuda/bin/nvcc"
+    if exe is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return exe
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for path in sorted(CSRC.iterdir()):
+        if path.suffix in (".cu", ".cuh"):
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build_dir() -> Path:
+    return BUILD_ROOT / _source_hash()
+
+
+def build_all() -> Path:
+    """Compile every kernel that is not built yet (one nvcc each, started
+    together) and return the build directory.  Raises on any failure."""
+    out = build_dir()
+    with _lock:
+        out.mkdir(parents=True, exist_ok=True)
+        todo = [k for k in SOURCES if not (out / f"lib{k}.so").exists()]
+        if not todo:
+            return out
+        nvcc = _nvcc()
+        procs = []
+        for k in todo:
+            tmp = out / f"lib{k}.so.tmp{os.getpid()}"
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / f"{k}.cu")]
+            procs.append((k, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for k, tmp, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{k}: nvcc exit {proc.returncode}\n{log}")
+                continue
+            os.replace(tmp, out / f"lib{k}.so")
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+_VP, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_ARGTYPES = {
+    # a, b, out, n, a_bcast, b_bcast, consts, stream
+    "mont_mul": [_VP, _VP, _VP, _LL, _I, _I, _VP, _VP],
+    # e, o, w, out_e, out_o, n, consts, stream
+    "ntt_butterfly": [_VP, _VP, _VP, _VP, _VP, _LL, _VP, _VP],
+    # x, tw, out, logm, B, cols_per_block, consts, stream
+    "ntt_columns": [_VP, _VP, _VP, _I, _LL, _I, _VP, _VP],
+    # x1 y1 z1 x2 y2 z2 ox oy oz, n, p_bcast, q_bcast, consts, stream
+    "ec_add": [_VP] * 9 + [_LL, _I, _I, _VP, _VP],
+    # x y z (updated in place), rows, valid, n, consts, stream
+    "ec_madd": [_VP] * 5 + [_LL, _VP, _VP],
+    # in[12], out[6] (host arrays of device pointers), n, p_bcast, q_bcast,
+    # consts, stream
+    "ec_add_g2": [_VP, _VP, _LL, _I, _I, _VP, _VP],
+}
+
+
+def _lib(name: str):
+    lib = _libs.get(name)
+    if lib is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"CUDA kernel {name!r} needs a card: none is available and "
+                "there is no fallback (CPU tensors take the plain version)")
+        path = build_all() / f"lib{_ENTRY_SOURCE.get(name, name)}.so"
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(path))
+                fn = getattr(lib, f"cc_{name}")
+                fn.argtypes = _ARGTYPES[name]
+                fn.restype = ctypes.c_int
+                _libs[name] = lib
+    return getattr(lib, f"cc_{name}")
+
+
+def load_all() -> None:
+    for k in KERNELS:
+        _lib(k)
+
+
+# ---------------------------------------------------------------- wrappers
+
+def _check(name: str, t: torch.Tensor, what: str) -> None:
+    if not isinstance(t, torch.Tensor) or not t.is_cuda:
+        raise ValueError(f"{name}: {what} must be a CUDA tensor")
+    if t.dtype != torch.int32:
+        raise ValueError(f"{name}: {what} must be int32, got {t.dtype}")
+    if t.dim() < 1 or t.shape[0] != L:
+        raise ValueError(f"{name}: {what} must have {L} limbs on axis 0")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _on(device: torch.device):
+    """Context that makes `device` current for a launch; free when it
+    already is (switching costs more than a small kernel)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _launch(name: str, *args) -> None:
+    err = _lib(name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
+    _count(name)
+
+
+def _flat_or_single(t, batch):
+    """(pointer-ready tensor, broadcast flag): a size-1 batch is passed once
+    and broadcast inside the kernel; anything else is expanded."""
+    n = 1
+    for d in batch:
+        n *= d
+    if t.numel() == L and n != 1:
+        return t.reshape(L).contiguous(), 1
+    if tuple(t.shape[1:]) != tuple(batch):
+        extra = len(batch) - (t.dim() - 1)
+        t = t.reshape((L,) + (1,) * extra + tuple(t.shape[1:])).expand((L,) + tuple(batch))
+    return t.contiguous(), 0
+
+
+def mont_mul(a: torch.Tensor, b: torch.Tensor, consts) -> torch.Tensor:
+    """a*b*R^-1 mod p elementwise over broadcast (L, *batch) limbs."""
+    _check("mont_mul", a, "a")
+    _check("mont_mul", b, "b")
+    batch = broadcast_shapes(a.shape[1:], b.shape[1:])
+    a2, a_bc = _flat_or_single(a, batch)
+    b2, b_bc = _flat_or_single(b, batch)
+    out = torch.empty((L,) + tuple(batch), dtype=torch.int32, device=a.device)
+    n = out.numel() // L
+    if n:
+        with _on(a.device):
+            _launch("mont_mul", a2.data_ptr(), b2.data_ptr(), out.data_ptr(), n,
+                    a_bc, b_bc, ctypes.addressof(consts), _stream())
+    return out
+
+
+def ntt_butterfly(e, o, w, consts):
+    """One radix-2 stage on (L, n) limbs: (e + o w, e - o w) mod p."""
+    for t, what in ((e, "e"), (o, "o"), (w, "w")):
+        _check("ntt_butterfly", t, what)
+        if t.dim() != 2 or t.shape != e.shape or not t.is_contiguous():
+            raise ValueError("ntt_butterfly: e, o, w must be contiguous (L, n) "
+                             "tensors of one shape")
+    oe = torch.empty_like(e)
+    oo = torch.empty_like(e)
+    n = e.shape[1]
+    if n:
+        with _on(e.device):
+            _launch("ntt_butterfly", e.data_ptr(), o.data_ptr(), w.data_ptr(),
+                    oe.data_ptr(), oo.data_ptr(), n,
+                    ctypes.addressof(consts), _stream())
+    return oe, oo
+
+
+NTT_COLUMNS_MAX_LOG = 10
+_SMEM_BUDGET = 128 * 1024
+
+
+def ntt_columns(x, tw, consts):
+    """2^m-point NTT (1 <= m <= 10) along axis 1 of (L, M, B) limbs, natural
+    order in and out; tw is (L, M/2): the powers w^0..w^(M/2-1)."""
+    _check("ntt_columns", x, "x")
+    _check("ntt_columns", tw, "tw")
+    if x.dim() != 3 or not x.is_contiguous() or not tw.is_contiguous():
+        raise ValueError("ntt_columns: x must be contiguous (L, M, B)")
+    _, M, B = x.shape
+    logm = M.bit_length() - 1
+    if (1 << logm) != M or not 1 <= logm <= NTT_COLUMNS_MAX_LOG:
+        raise ValueError(f"ntt_columns: M={M} must be a power of two in [2, 1024]")
+    if tuple(tw.shape) != (L, M // 2):
+        raise ValueError("ntt_columns: tw must be (L, M/2)")
+    cb = 8
+    while cb > 1 and (cb * M * L * 4 > _SMEM_BUDGET or cb > B):
+        cb //= 2
+    out = torch.empty_like(x)
+    if B:
+        with _on(x.device):
+            _launch("ntt_columns", x.data_ptr(), tw.data_ptr(), out.data_ptr(),
+                    logm, B, cb, ctypes.addressof(consts), _stream())
+    return out
+
+
+def _coords(name, pt, batch):
+    out, flag = [], None
+    for c in pt:
+        _check(name, c, "coordinate")
+        c2, bc = _flat_or_single(c, batch)
+        if flag is not None and bc != flag:
+            raise ValueError(f"{name}: coordinates of one point differ in shape")
+        flag = bc
+        out.append(c2)
+    return out, flag
+
+
+def ec_add(p, q, consts):
+    """Complete projective G1 add on 3 x (L, *batch) coordinate tensors; a
+    single point on either side is broadcast.  Returns (X3, Y3, Z3)."""
+    batch = broadcast_shapes(p[0].shape[1:], q[0].shape[1:])
+    pc, p_bc = _coords("ec_add", p, batch)
+    qc, q_bc = _coords("ec_add", q, batch)
+    dev = pc[0].device
+    outs = [torch.empty((L,) + tuple(batch), dtype=torch.int32, device=dev)
+            for _ in range(3)]
+    n = outs[0].numel() // L
+    if n:
+        with _on(dev):
+            _launch("ec_add", *(c.data_ptr() for c in pc), *(c.data_ptr() for c in qc),
+                    *(o.data_ptr() for o in outs), n, p_bc, q_bc,
+                    ctypes.addressof(consts), _stream())
+    return tuple(outs)
+
+
+def ec_add_g2(p, q, consts):
+    """Complete projective G2 add: every coordinate is a pair (c0, c1) of
+    (L, *batch) tensors over Fq2; a single point on either side is
+    broadcast.  Returns ((X0, X1), (Y0, Y1), (Z0, Z1))."""
+    batch = broadcast_shapes(p[0][0].shape[1:], q[0][0].shape[1:])
+    pc, p_bc = _coords("ec_add_g2", [c for pair in p for c in pair], batch)
+    qc, q_bc = _coords("ec_add_g2", [c for pair in q for c in pair], batch)
+    dev = pc[0].device
+    outs = [torch.empty((L,) + tuple(batch), dtype=torch.int32, device=dev)
+            for _ in range(6)]
+    n = outs[0].numel() // L
+    if n:
+        ins = (ctypes.c_void_p * 12)(*(c.data_ptr() for c in pc + qc))
+        outp = (ctypes.c_void_p * 6)(*(o.data_ptr() for o in outs))
+        with _on(dev):
+            _launch("ec_add_g2", ctypes.addressof(ins), ctypes.addressof(outp), n,
+                    p_bc, q_bc, ctypes.addressof(consts), _stream())
+    return ((outs[0], outs[1]), (outs[2], outs[3]), (outs[4], outs[5]))
+
+
+def ec_madd(acc, rows, valid, consts):
+    """Masked Jacobian += affine, IN PLACE on the three contiguous (L, *batch)
+    accumulator tensors.  rows: (n, 2L) int32, row i = [x limbs | y limbs] of
+    lane i's affine point ((0, 0) = identity: lane unchanged); valid: (n,)
+    bool, False = lane unchanged.  Returns acc."""
+    for c in acc:
+        _check("ec_madd", c, "acc coordinate")
+        if not c.is_contiguous() or c.shape != acc[0].shape:
+            raise ValueError("ec_madd: acc coordinates must be contiguous and alike")
+    n = acc[0].numel() // L
+    if not rows.is_cuda or rows.dtype != torch.int32 or not rows.is_contiguous() \
+            or tuple(rows.shape) != (n, 2 * L):
+        raise ValueError("ec_madd: rows must be a contiguous CUDA int32 (n, 2L) tensor")
+    if not valid.is_cuda or valid.dtype != torch.bool or valid.numel() != n \
+            or not valid.is_contiguous():
+        raise ValueError("ec_madd: valid must be a contiguous CUDA bool tensor of n lanes")
+    if n:
+        with _on(acc[0].device):
+            _launch("ec_madd", *(c.data_ptr() for c in acc), rows.data_ptr(),
+                    valid.data_ptr(), n, ctypes.addressof(consts), _stream())
+    return acc

@@ -1,0 +1,127 @@
+"""Vectorized ChaCha12 as the MPC correlated PRF, in plain torch.
+
+The upstream project keys every correlated randomness stream with 256-bit
+ChaCha12 seeds from OS entropy (mpc-core/src/protocols/rep3/rngs.rs,
+SEED_SIZE = 32 bytes).  The block function is pure 32-bit adds, xors and
+rotations, vectorized over block counters, so mask tensors of any batch
+shape are generated on the device that the stream lives on.  Words are held
+in int64 and masked to 32 bits after every add and shift.  For a given seed
+the stream equals the JAX package's word for word.
+
+Layout: state rows held as four (4, n) arrays (A=consts, B/C=key,
+D=counter/domain/nonce); a double round is one column QR + one diagonal QR
+with row rolls.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import secrets
+
+import numpy as np
+import torch
+
+from ..ops.field import resolve_device
+
+M32 = 0xFFFFFFFF
+_SIGMA = (0x61707865, 0x3320646E, 0x79622D32, 0x6B206574)
+
+
+def _rotl(x, n: int):
+    return ((x << n) | (x >> (32 - n))) & M32
+
+
+def _qr(a, b, c, d):
+    a = (a + b) & M32
+    d = _rotl(d ^ a, 16)
+    c = (c + d) & M32
+    b = _rotl(b ^ c, 12)
+    a = (a + b) & M32
+    d = _rotl(d ^ a, 8)
+    c = (c + d) & M32
+    b = _rotl(b ^ c, 7)
+    return a, b, c, d
+
+
+def chacha_blocks(key8, ctr0: int, domain: int, nblocks: int, rounds: int = 12):
+    """key8: (8,) int64 key words on the target device; ctr0/domain: ints.
+    Returns (16, nblocks) int64 words in [0, 2^32): one block per column."""
+    n = nblocks
+    dev = key8.device
+    ctr = (torch.arange(n, dtype=torch.int64, device=dev) + int(ctr0)) & M32
+    zero = torch.zeros(n, dtype=torch.int64, device=dev)
+    a0 = torch.tensor(_SIGMA, dtype=torch.int64, device=dev)[:, None].expand(4, n)
+    b0 = key8[0:4, None].expand(4, n)
+    c0 = key8[4:8, None].expand(4, n)
+    d0 = torch.stack([ctr, torch.full_like(ctr, int(domain) & M32), zero, zero])
+    a, b, c, d = a0, b0, c0, d0
+    for _ in range(rounds // 2):
+        a, b, c, d = _qr(a, b, c, d)  # column round (4 QRs batched)
+        b = torch.roll(b, -1, dims=0)
+        c = torch.roll(c, -2, dims=0)
+        d = torch.roll(d, -3, dims=0)
+        a, b, c, d = _qr(a, b, c, d)  # diagonal round
+        b = torch.roll(b, 1, dims=0)
+        c = torch.roll(c, 2, dims=0)
+        d = torch.roll(d, 3, dims=0)
+    return torch.cat([(a + a0) & M32, (b + b0) & M32, (c + c0) & M32, (d + d0) & M32], dim=0)
+
+
+def seed_to_words(seed: bytes | int, device=None):
+    """32-byte seed -> (8,) int64 key words on `device` (the card unless
+    named).  Integer seeds (tests) are expanded through SHA-256 so no path
+    ever keys ChaCha with < 256 bits."""
+    if isinstance(seed, int):
+        seed = hashlib.sha256(seed.to_bytes(32, "little", signed=False)).digest()
+    if len(seed) != 32:
+        raise ValueError("ChaCha seed must be exactly 32 bytes")
+    words = np.frombuffer(seed, dtype="<u4").astype(np.int64)
+    return torch.from_numpy(words).to(resolve_device(device))
+
+
+def fresh_seed() -> bytes:
+    return secrets.token_bytes(32)
+
+
+class ChaChaStream:
+    """A counter-mode ChaCha12 stream over one (key, domain) pair.
+
+    Streams shared between two parties advance in lockstep as long as both
+    sides make the same sequence of requests.  The stream lives on `device`:
+    the card unless the caller names another."""
+
+    def __init__(self, seed: bytes | int, domain: int = 0, device=None):
+        self.key = seed_to_words(seed, device)
+        self.domain = domain
+        self.ctr = 0
+
+    def words(self, shape):
+        """uniform 32-bit words of `shape`, as int64 in [0, 2^32)."""
+        total = 1
+        for s in shape:
+            total *= s
+        nblk = max(1, -(-total // 16))
+        out = chacha_blocks(self.key, self.ctr, self.domain, nblk)
+        self.ctr += nblk
+        return out.t().reshape(-1)[:total].reshape(tuple(shape))
+
+    def limbs16(self, shape):
+        """uniform 16-bit limbs (int64): each word yields two limbs, low
+        half first."""
+        L = shape[0]
+        rest = tuple(shape[1:])
+        half = -(-L // 2)
+        w = self.words((half,) + rest)
+        both = torch.stack([w & 0xFFFF, w >> 16], dim=1).reshape((2 * half,) + rest)
+        return both[:L]
+
+    def rand_mont(self, f, batch_shape=()):
+        """uniform field element in Montgomery form (bias < 2^-240): 2L
+        stream words w, top half-word zeroed, reduced as
+        (w_lo + w_hi R) R^-1 mod p.  Word k of the stream is 32-bit limb k,
+        i.e. the pair of 16-bit limbs (2k, 2k+1) of `limbs16`."""
+        w = self.words((2 * f.L,) + tuple(batch_shape))
+        lo = w[: f.L].to(torch.int32)
+        hi = w[f.L:].clone()
+        hi[f.L - 1] &= 0xFFFF
+        return f.mont_reduce_wide(lo, hi.to(torch.int32))

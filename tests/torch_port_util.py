@@ -1,0 +1,73 @@
+"""Shared helpers of the tests that hold the PyTorch port to the JAX package.
+
+Inputs are made from a seed with numpy and handed to both sides; the port
+runs with device="cpu" on its plain versions; results are compared with
+tolerance 0 (exact integer arithmetic), points by affine decode.
+"""
+
+import numpy as np
+import torch
+
+from cocircom_tpu_torch import convert
+
+# The plain versions are thousands of small tensor ops: more intra-op threads
+# do not help them, and the test run has several worker processes already.
+torch.set_num_threads(2)
+
+
+def rand_ints(p: int, n: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [int.from_bytes(rng.bytes(48), "little") % p for _ in range(n)]
+
+
+def to_port(limbs16) -> torch.Tensor:
+    """reference limb array (jax or numpy) -> port tensor on the CPU."""
+    return convert.field_from_reference(np.asarray(limbs16), device="cpu")
+
+
+def same(port_tensor: torch.Tensor, ref_limbs16) -> bool:
+    """Equal after the limb repack, bit for bit."""
+    return np.array_equal(convert.field_to_reference(port_tensor),
+                          np.asarray(ref_limbs16))
+
+
+def multiplier_chain(curve, r1cs_cls, n_mul: int, a_val: int):
+    """R1CS of y = a^(n_mul+1) as a chain of multiplications.  Wires: 0 = 1,
+    1 = y (public output), 2 = a (public input), 3.. = intermediates.
+    Returns (r1cs, witness values as ints)."""
+    p = curve.fr.p
+    vals = [1, None, a_val % p]
+    cons = []
+    cur = 2
+    for i in range(n_mul):
+        out = 1 if i == n_mul - 1 else len(vals)
+        cons.append(([(cur, 1)], [(2, 1)], [(out, 1)]))
+        v = vals[cur] * vals[2] % p
+        if out == 1:
+            vals[1] = v
+        else:
+            vals.append(v)
+        cur = out
+    r1cs = r1cs_cls(curve=curve, n_wires=len(vals), n_pub_out=1, n_pub_in=1, n_prv_in=0,
+                    n_labels=len(vals), n_constraints=len(cons), constraints=cons,
+                    wire_mapping=[])
+    return r1cs, vals
+
+
+def small_msm_engines(monkeypatch):
+    """Rank split T = 2 for the engines both packages create during one
+    test (fewer idle lanes at toy sizes); cached engines are dropped before
+    and after so no other test sees them."""
+    import cocircom_tpu.ops.msm as ref_msm
+    import cocircom_tpu_torch.ops.msm as port_msm
+
+    monkeypatch.setenv("COCIRCOM_MSM_T", "2")          # read by the JAX package
+    monkeypatch.setattr(port_msm.MSM, "T_DEFAULT", 2)
+    ref_msm.msm_engine.cache_clear()
+    port_msm.msm_engine.cache_clear()
+
+    def restore():
+        ref_msm.msm_engine.cache_clear()
+        port_msm.msm_engine.cache_clear()
+
+    return restore
