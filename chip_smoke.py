@@ -7,24 +7,40 @@ NVIDIA card, nvcc and PyTorch built for CUDA:
     python3 chip_smoke.py
 
 Phases (each prints one JSON line; any failure exits non-zero):
-  build        compile the CUDA kernels from cocircom_tpu_torch/csrc
-  device       the card's name and power limit as nvidia-smi gives them
-  kernels      each kernel against its plain PyTorch version on the card at
-               the shapes the prover gives it, bit for bit (tolerance 0),
-               plus edge inputs; times for kernel and plain version; the
-               least time the card could take (bound)
-  prove_small  hand-built R1CS -> groth16_setup -> zkey bytes -> loader ->
-               3-party REP3 proof on the card -> pairing verifier accepts,
-               the three proofs are equal, a changed public input is refused
-  prove_full   synthetic zkey at 2^20 constraints built on the card, 3-party
-               REP3 proof cold and warm; proofs equal and on curve; NTT
-               round trips; one G1 and one G2 MSM against a host-computed
-               known discrete log
+  build          compile the CUDA kernels from cocircom_tpu_torch/csrc; registers
+                 and spill bytes of every instantiation as ptxas reports them
+  device         the card's name and power limit as nvidia-smi gives them
+  kernels        each kernel against its plain PyTorch version on the card at
+                 the shapes the prover gives it, bit for bit (tolerance 0),
+                 plus edge inputs; times for kernel and plain version; the
+                 least time the card could take (bound).  Once over BN254 (8
+                 limbs) and once over BLS12-381 (the 12-limb builds over Fq,
+                 and the 8-limb NTT kernels with BLS12-381 Fr's constants)
+  prove_small    hand-built R1CS -> groth16_setup -> zkey bytes -> loader ->
+                 3-party REP3 proof on the card -> pairing verifier accepts,
+                 the three proofs are equal, a changed public input is refused
+  prove_full     synthetic zkey at 2^20 constraints built on the card, 3-party
+                 REP3 proof cold and warm; proofs equal and on curve; NTT
+                 round trips; one G1 and one G2 MSM against a host-computed
+                 known discrete log
+  prove_sharded  the same zkey and shares, each party's driver built with
+                 `devices` = every visible card (the one card twice when
+                 there is one), so every prover MSM and (i)NTT goes through
+                 the device-sharded engines and the G1 waves through
+                 `ec_wave_add`; proofs equal and on curve; one sharded G1 and
+                 G2 MSM equal to the local engine's and to the known discrete
+                 log; a sharded 2^20 NTT and iNTT equal to the local
+                 engine's bit for bit
+  prove_bls      the hand-built circuit over BLS12-381 through groth16_setup
+                 and the loader: a 3-party REP3 proof with one-device
+                 drivers and one with sharded drivers; the pairing verifier
+                 accepts both and refuses a changed public input
+  graft          graft_entry.entry() and graft_entry.dryrun_multichip(2)
 The launch counts are set to 0 just before each phase's first 3-party proof
-and read just after it, so they hold the proving path alone; a line
-{"phase": "launches", ...} gives the two proofs' counts apart.  Then one
-line {"kernels": [...]} whose launches are their sum, the nvidia-smi line,
-and as the last line
+and read just after it, so they hold the proving paths alone; a line
+{"phase": "launches", ...} gives each proof's counts apart.  Then one line
+{"kernels": [...]} whose launches are their sum, the nvidia-smi line, and as
+the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Options (for shorter measurement runs):
@@ -33,18 +49,21 @@ Options (for shorter measurement runs):
                     here: `profile`, a warm prove_full-sized proof under
                     torch.profiler, which prints the card's busy share of the
                     wall time and the device time by kernel
-  --full-log N      size of prove_full (default 20; never below 18)
+  --full-log N      size of prove_full and prove_sharded (default 20; never
+                    below 18)
 
 Integer peak used for the bound: the card's table gives 67 TFLOP/s float32
 outside the tensor cores, i.e. 33.5e12 fused multiply-adds a second on 128
 lanes per SM; 32-bit integer multiply-adds issue on half as many lanes, so
-16.75e12 a second.  Memory rate: 3.35e12 bytes a second.
+16.75e12 a second.  Memory rate: 3.35e12 bytes a second.  A Montgomery
+product of L limbs counts 2*L*L + L multiply-adds.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -54,11 +73,12 @@ import torch
 
 MEM_RATE = 3.35e12
 INT_MAD_RATE = 16.75e12
-MADS_PER_MUL = 2 * 8 * 8 + 8  # 32-bit multiply-adds of one BN254 Montgomery product
 
 SMALL_MULS = 300  # constraints of prove_small's multiplier chain
+BLS_MULS = 100    # constraints of prove_bls's multiplier chain
 
-ALL_PHASES = ("build", "device", "kernels", "prove_small", "prove_full")
+ALL_PHASES = ("build", "device", "kernels", "prove_small", "prove_full", "prove_sharded",
+              "prove_bls", "graft")
 OPTIONAL_PHASES = ("profile",)
 
 
@@ -151,9 +171,10 @@ def on_curve(curve, proof) -> bool:
     return bool(ok)
 
 
-def prove_rep3(curve, zkey, shares, device, traced: bool):
+def prove_rep3(curve, zkey, shares, device, traced: bool, devices=None):
     """Three party threads over the in-process network; returns
-    (proofs, wall seconds, per-span seconds of party 0)."""
+    (proofs, wall seconds, per-span seconds of party 0).  With `devices` the
+    parties' drivers are built with that list (the sharded engines)."""
     from cocircom_tpu_torch.mpc.rep3 import Rep3Driver
     from cocircom_tpu_torch.mpc.runner import run_parties
     from cocircom_tpu_torch.snark.groth16 import CoGroth16
@@ -163,8 +184,8 @@ def prove_rep3(curve, zkey, shares, device, traced: bool):
 
     def party(i, net):
         tracer = Tracer(enabled=traced and i == 0, net=net, sync=torch.cuda.synchronize)
-        proof = CoGroth16(Rep3Driver(curve, net, device=device), tracer).prove(
-            zkey, shares[i])
+        where = {"device": device} if devices is None else {"devices": devices}
+        proof = CoGroth16(Rep3Driver(curve, net, **where), tracer).prove(zkey, shares[i])
         if i == 0:
             rows.extend(tracer.rows)
             rows.append((0, "whole prove (party 0, incl. PRF setup)", 0.0, *net.stats()))
@@ -183,19 +204,33 @@ def prove_rep3(curve, zkey, shares, device, traced: bool):
 # ------------------------------------------------------------ phase: kernels
 
 def phase_kernels(curve, device) -> list:
-    """Every kernel against its plain version at the main path's shapes."""
+    """Every kernel against its plain version at the main path's shapes, over
+    `curve`.  The curve kernels (K4, K5, K6, G2 add) run over its Fq.  The
+    field kernels (K1, K2, K3) run over Fr for BN254, as the prover gives
+    them, and over the 12-limb Fq for BLS12-381, with a power table of an
+    arbitrary element as twiddles (Fq has no large root of unity; kernel and
+    plain version run the same butterfly network on whatever table they are
+    given); there the 8-limb K2 and K3 are also held to their plain versions
+    with BLS12-381 Fr's constants and real twiddles.
+
+    Rows are named by the launch count's key: the kernel's name for 8 limbs,
+    `<name>_l12` for 12."""
     from cocircom_tpu_torch.ops import kernels
     from cocircom_tpu_torch.ops.curve import (ProjPoint, ec_add_g2_plain, ec_add_plain,
-                                              ec_madd, ec_madd_plain, g1_ops, g2_ops,
-                                              leaves, pmap)
+                                              ec_madd, ec_madd_plain, ec_wave_add,
+                                              ec_wave_add_plain, g1_ops, g2_ops, leaves, pmap)
     from cocircom_tpu_torch.ops.field import get_field, mont_mul_plain
     from cocircom_tpu_torch.ops.ntt import (butterfly, butterfly_plain, ntt_columns,
-                                            ntt_columns_plain, ntt_engine)
+                                            ntt_columns_plain, ntt_engine, power_table)
 
     gen = torch.Generator().manual_seed(20)
     fr = get_field(curve.fr.p, curve.name + ".fr", device)
     fq = get_field(curve.fq.p, curve.name + ".fq", device)
     g1 = g1_ops(curve, device)
+    L = fq.L
+    f1 = fr if L == 8 else fq            # the field K1-K3 are timed over
+    mpm = 2 * L * L + L                  # multiply-adds of one Montgomery product
+    W = 4 * L                            # bytes of one element
     out = []
 
     def edge(f, n):
@@ -214,7 +249,7 @@ def phase_kernels(curve, device) -> list:
     def record(name, source, replaces, err, ms, plain_ms, nbytes, mads, shape):
         b_ms, by = bound(nbytes, mads)
         out.append({
-            "name": name, "route": "cuda",
+            "name": kernels.count_key(name, L), "route": "cuda",
             "source": f"cocircom_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
@@ -224,63 +259,83 @@ def phase_kernels(curve, device) -> list:
     def max_err(a, b) -> int:
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
-    # ---- K1 mont_mul: (8, 2^20) x (8, 2^20), Fr (coset shift, mul_vec) ----
+    def twiddles(f, logm, inverse=False):
+        """w^0..w^(M/2-1): the engine's table over Fr, powers of 7 over Fq."""
+        if f is fr:
+            return ntt_engine(fr, curve.fr)._twiddles(logm, inverse)
+        return power_table(f, 7, max((1 << logm) // 2, 1)).contiguous()
+
+    # ---- K1 mont_mul: (L, 2^20) x (L, 2^20) (coset shift, mul_vec) ----
     n = 1 << 20
-    a = rand_field(fr, (n,), gen)
-    b = rand_field(fr, (n,), gen)
-    a[:, :64] = edge(fr, 64)
-    b[:, :64] = edge(fr, 64).roll(1, dims=1)
-    got = fr.mont_mul(a, b)
-    err = max_err(got, mont_mul_plain(fr, a, b))
+    a = rand_field(f1, (n,), gen)
+    b = rand_field(f1, (n,), gen)
+    a[:, :64] = edge(f1, 64)
+    b[:, :64] = edge(f1, 64).roll(1, dims=1)
+    got = f1.mont_mul(a, b)
+    err = max_err(got, mont_mul_plain(f1, a, b))
     single = b[:, :1].contiguous()
-    err = max(err, max_err(fr.mont_mul(a, single), mont_mul_plain(fr, a, single)))
-    qa, qb = edge(fq, 4096), rand_field(fq, (4096,), gen)
-    err = max(err, max_err(fq.mont_mul(qa, qb), mont_mul_plain(fq, qa, qb)))
-    check(err == 0, f"mont_mul disagrees with mont_mul_plain (max abs err {err})")
-    ms = time_cuda(lambda: fr.mont_mul(a, b), 50)
-    pms = timed_plain(lambda: mont_mul_plain(fr, a, b))
+    err = max(err, max_err(f1.mont_mul(a, single), mont_mul_plain(f1, a, single)))
+    for f in (fr, fq):                   # both fields of the curve, edge values
+        qa, qb = edge(f, 4096), rand_field(f, (4096,), gen)
+        err = max(err, max_err(f.mont_mul(qa, qb), mont_mul_plain(f, qa, qb)))
+    check(err == 0, f"mont_mul (L={L}) disagrees with mont_mul_plain (max abs err {err})")
+    ms = time_cuda(lambda: f1.mont_mul(a, b), 50)
+    pms = timed_plain(lambda: mont_mul_plain(f1, a, b))
     record("mont_mul", "mont_mul.cu", "cocircom_tpu/ops/pallas_field.py:593", err, ms, pms,
-           96 * n, MADS_PER_MUL * n, [8, n])
+           3 * W * n, mpm * n, [L, n])
 
-    # ---- K2 ntt_butterfly: (8, 1024): a stage of the 2^11-point transform,
+    # ---- K2 ntt_butterfly: (L, 1024): a stage of the 2^11-point transform,
     # the largest the per-stage engine runs ----
-    n = 1 << 10
-    e, o, w = (rand_field(fr, (n,), gen) for _ in range(3))
-    e[:, :64] = edge(fr, 64)
-    o[:, :64] = edge(fr, 64).roll(2, dims=1)
-    w[:, :64] = edge(fr, 64).roll(1, dims=1)
-    ge, go = butterfly(fr, e, o, w)
-    pe, po = butterfly_plain(fr, e, o, w)
-    err = max(max_err(ge, pe), max_err(go, po))
-    big = [rand_field(fr, (1 << 16,), gen) for _ in range(3)]
-    g2_, p2_ = butterfly(fr, *big), butterfly_plain(fr, *big)
-    err = max(err, max_err(g2_[0], p2_[0]), max_err(g2_[1], p2_[1]))
-    check(err == 0, f"ntt_butterfly disagrees with butterfly_plain (max abs err {err})")
-    ms = time_cuda(lambda: butterfly(fr, e, o, w), 200)
-    pms = timed_plain(lambda: butterfly_plain(fr, e, o, w))
-    record("ntt_butterfly", "ntt_butterfly.cu", "cocircom_tpu/ops/pallas_field.py:502", err,
-           ms, pms, 160 * n, MADS_PER_MUL * n, [8, n])
+    def check_butterfly(f):
+        n = 1 << 10
+        e, o, w = (rand_field(f, (n,), gen) for _ in range(3))
+        e[:, :64] = edge(f, 64)
+        o[:, :64] = edge(f, 64).roll(2, dims=1)
+        w[:, :64] = edge(f, 64).roll(1, dims=1)
+        ge, go = butterfly(f, e, o, w)
+        pe, po = butterfly_plain(f, e, o, w)
+        err = max(max_err(ge, pe), max_err(go, po))
+        big = [rand_field(f, (1 << 16,), gen) for _ in range(3)]
+        g2_, p2_ = butterfly(f, *big), butterfly_plain(f, *big)
+        return max(err, max_err(g2_[0], p2_[0]), max_err(g2_[1], p2_[1])), (e, o, w)
 
-    # ---- K3 ntt_columns: (8, 1024, 1024): the first level of a 2^20 NTT ----
+    err, (e, o, w) = check_butterfly(f1)
+    check(err == 0, f"ntt_butterfly (L={L}) disagrees with butterfly_plain (max abs err {err})")
+    n = 1 << 10
+    ms = time_cuda(lambda: butterfly(f1, e, o, w), 200)
+    pms = timed_plain(lambda: butterfly_plain(f1, e, o, w))
+    record("ntt_butterfly", "ntt_butterfly.cu", "cocircom_tpu/ops/pallas_field.py:502", err,
+           ms, pms, 5 * W * n, mpm * n, [L, n])
+
+    # ---- K3 ntt_columns: (L, 1024, 1024): the first level of a 2^20 NTT ----
+    def check_columns(f, shapes):
+        err = 0
+        for logm, cols in shapes:
+            xs = rand_field(f, (1 << logm, cols), gen)
+            tws = twiddles(f, logm, True)
+            err = max(err, max_err(ntt_columns(f, xs, tws), ntt_columns_plain(f, xs, tws)))
+        return err
+
     M, B = 1 << 10, 1 << 10
-    eng = ntt_engine(fr, curve.fr)
-    tw = eng._twiddles(10, False)
-    x = rand_field(fr, (M, B), gen)
-    x[:, :8, :8] = edge(fr, 64).reshape(8, 8, 8)
-    got = ntt_columns(fr, x, tw)
-    err = max_err(got, ntt_columns_plain(fr, x, tw))
-    for logm, cols in ((1, 5), (4, 3), (9, 64), (10, 64)):
-        xs = rand_field(fr, (1 << logm, cols), gen)
-        tws = eng._twiddles(logm, True)
-        err = max(err, max_err(ntt_columns(fr, xs, tws), ntt_columns_plain(fr, xs, tws)))
-    check(err == 0, f"ntt_columns disagrees with ntt_columns_plain (max abs err {err})")
-    ms = time_cuda(lambda: ntt_columns(fr, x, tw), 10)
-    pms = timed_plain(lambda: ntt_columns_plain(fr, x, tw))
+    tw = twiddles(f1, 10)
+    x = rand_field(f1, (M, B), gen)
+    x[:, :8, :8] = edge(f1, 64).reshape(L, 8, 8)
+    got = ntt_columns(f1, x, tw)
+    err = max_err(got, ntt_columns_plain(f1, x, tw))
+    err = max(err, check_columns(f1, ((1, 5), (4, 3), (9, 64), (10, 64))))
+    check(err == 0, f"ntt_columns (L={L}) disagrees with ntt_columns_plain (max abs err {err})")
+    ms = time_cuda(lambda: ntt_columns(f1, x, tw), 10)
+    pms = timed_plain(lambda: ntt_columns_plain(f1, x, tw))
     record("ntt_columns", "ntt_columns.cu", "cocircom_tpu/ops/pallas_ntt.py:223", err, ms, pms,
-           2 * 32 * M * B + 32 * (M // 2), 10 * (M // 2) * B * MADS_PER_MUL, [8, M, B])
+           2 * W * M * B + W * (M // 2), 10 * (M // 2) * B * mpm, [L, M, B])
     del x, got
 
-    # ---- K4 ec_add: (8, 22, 2048): the bucket-reduction suffix sums of a
+    if f1 is not fr:
+        # this curve's Fr: the 8-limb builds with another modulus and root tower
+        err = max(check_butterfly(fr)[0], check_columns(fr, ((4, 3), (10, 64))))
+        check(err == 0, f"{curve.name} Fr: an NTT kernel disagrees with its plain version")
+
+    # ---- K4 ec_add: (L, 22, 2048): the bucket-reduction suffix sums of a
     # c = 12 MSM ----
     nl = 22 * 2048
     small = torch.randint(1, 1 << 15, (1, nl), generator=gen, dtype=torch.int64)
@@ -301,15 +356,16 @@ def phase_kernels(curve, device) -> list:
     one = ProjPoint(*(c[:, 100].contiguous() for c in P))
     got1, ref1 = g1.add(P, one), ec_add_plain(fq, g1._b3_mont, P, one)
     err = max(err, max(max_err(g, r) for g, r in zip(got1, ref1)))
-    check(err == 0, f"ec_add disagrees with ec_add_plain (max abs err {err})")
+    check(err == 0, f"ec_add (L={L}) disagrees with ec_add_plain (max abs err {err})")
     dec = g1.decode_points(ProjPoint(*(c[:, 40:56] for c in got)))
     check(all(d is None for d in dec[8:]), "ec_add: P + (-P) is not the identity")
     ms = time_cuda(lambda: g1.add(P, Q), 50)
     pms = timed_plain(lambda: ec_add_plain(fq, g1._b3_mont, P, Q))
     record("ec_add", "ec_add.cu", "cocircom_tpu/ops/pallas_curve.py:225", err, ms, pms,
-           288 * nl, 14 * MADS_PER_MUL * nl, [8, 22, 2048])
+           9 * W * nl, 14 * mpm * nl, [L, 22, 2048])
 
-    # ---- K5 ec_madd: (8, 22, 2049, 8) lanes: one wave of a c = 12 MSM ----
+    # ---- K5 ec_madd: (L, 22, 2049, 8) lanes: one wave of a c = 12 MSM ----
+    wave = (22, 2049, 8)
     nl = 22 * 2049 * 8
     small = torch.randint(1, 1 << 15, (1, nl), generator=gen, dtype=torch.int64)
     pts = g1.scalar_mul(base, small.to(torch.int32).to(device), nbits=15)
@@ -317,29 +373,69 @@ def phase_kernels(curve, device) -> list:
     rows = torch.cat([ax, ay], dim=0).t().contiguous()
     rows[5:9] = 0                                           # (0,0) rows: identity
     valid = torch.rand(nl, generator=gen).to(device) < 0.8  # invalid lanes pass
-    acc0 = ProjPoint(*(c.reshape(8, 22, 2049, 8).contiguous() for c in (
+    acc0 = ProjPoint(*(c.reshape((L,) + wave).contiguous() for c in (
         ax.roll(7, dims=1), ay.roll(7, dims=1), fq.one_mont((nl,)).contiguous())))
     ref = ec_madd_plain(fq, acc0, rows, valid)
     acc = ProjPoint(*(c.clone() for c in acc0))
     got = ec_madd(fq, acc, rows, valid)
     err = max(max_err(g, r) for g, r in zip(got, ref))
-    check(err == 0, f"ec_madd disagrees with ec_madd_plain (max abs err {err})")
+    check(err == 0, f"ec_madd (L={L}) disagrees with ec_madd_plain (max abs err {err})")
     untouched = ~valid
     untouched[5:9] = True
-    check(all(torch.equal(g.reshape(8, -1)[:, untouched], a.reshape(8, -1)[:, untouched])
+    check(all(torch.equal(g.reshape(L, -1)[:, untouched], a.reshape(L, -1)[:, untouched])
               for g, a in zip(got, acc0)), "ec_madd: a masked lane changed")
     n_valid = int(valid.sum().item())
     n_live = n_valid - int(valid[5:9].sum().item())
     ms = time_cuda(lambda: ec_madd(fq, acc, rows, valid), 50)
     pms = timed_plain(lambda: ec_madd_plain(fq, acc0, rows, valid))
     record("ec_madd", "ec_madd.cu", "cocircom_tpu/ops/pallas_curve.py:507", err, ms, pms,
-           nl + 64 * n_valid + 192 * n_live, 11 * MADS_PER_MUL * n_live, [8, 22, 2049, 8])
+           nl + 2 * W * n_valid + 6 * W * n_live, 11 * mpm * n_live, [L, *wave])
 
-    # ---- ec_add_g2: (8, 22, 2049, 8) lanes over Fq2: one wave of a c = 12
+    # ---- K6 ec_wave_add: (L, 22, 2049, 8) lanes: one wave of the complete-add
+    # path of a c = 12 MSM shard (2^19 points: half of the sharded 2^20 prove).
+    # Accumulators and points are projective with generic z ----
+    proj = g1.add(pts, ProjPoint(*(c.roll(3, dims=1) for c in pts)))   # z != 1
+    acc0 = ProjPoint(*(c.roll(11, dims=1).contiguous() for c in proj))
+    rows3 = torch.cat(list(proj), dim=0).t().contiguous()              # (nl, 3L)
+    valid = torch.rand(nl, generator=gen).to(device) < 0.8
+    neg = torch.rand(nl, generator=gen).to(device) < 0.5
+    ident = g1.identity((16,))
+    acc_rows = torch.cat(list(acc0), dim=0).t()                        # lane's own accumulator
+    for i, c in enumerate(acc0):
+        c[:, :16] = ident[i]                                           # identity accumulator
+    rows3[16:32] = torch.cat(list(ident), dim=0).t()                   # identity point
+    rows3[32:64] = acc_rows[32:64]                                     # the accumulator itself:
+    neg[32:48], neg[48:64] = False, True                               # doubling, inverse point
+    valid[:64], neg[:16] = True, False
+    rows3[64:80] = 0                                                   # masked lanes with an
+    valid[64:80], neg[64:80] = False, True                             # all-zero row
+    acc0 = ProjPoint(*(c.reshape((L,) + wave).contiguous() for c in acc0))
+    ref = ec_wave_add_plain(fq, g1._b3_mont, acc0, rows3, neg, valid)
+    acc = ProjPoint(*(c.clone() for c in acc0))
+    got = ec_wave_add(g1, acc, rows3, neg, valid)
+    err = max(max_err(g, r) for g, r in zip(got, ref))
+    check(err == 0, f"ec_wave_add (L={L}) disagrees with ec_wave_add_plain (max abs err {err})")
+    check(all(torch.equal(g.reshape(L, -1)[:, ~valid], a.reshape(L, -1)[:, ~valid])
+              for g, a in zip(got, acc0)), "ec_wave_add: a masked lane changed")
+    flat = ProjPoint(*(c.reshape(L, -1) for c in got))
+    dec = g1.decode_points(ProjPoint(*(c[:, :64] for c in flat)))
+    want = g1.decode_points(ProjPoint(*(c[:, :16] for c in proj)))
+    check(dec[:16] == want, "ec_wave_add: identity + P is not P")
+    dbl = g1.decode_points(g1.double(
+        ProjPoint(*(c.reshape(L, -1)[:, 32:48].contiguous() for c in acc0))))
+    check(dec[32:48] == dbl, "ec_wave_add: P + P is not 2P")
+    check(all(d is None for d in dec[48:64]), "ec_wave_add: P + (-P) is not the identity")
+    n_valid = int(valid.sum().item())
+    ms = time_cuda(lambda: ec_wave_add(g1, acc, rows3, neg, valid), 50)
+    pms = timed_plain(lambda: ec_wave_add_plain(fq, g1._b3_mont, acc0, rows3, neg, valid))
+    record("ec_wave_add", "ec_wave_add.cu", "cocircom_tpu/ops/pallas_curve.py:256", err, ms, pms,
+           nl + (1 + 9 * W) * n_valid, 14 * mpm * n_valid, [L, *wave])
+    del proj, acc0, acc, rows3, got, ref
+
+    # ---- ec_add_g2: (L, 22, 2049, 8) lanes over Fq2: one wave of a c = 12
     # G2 MSM.  The plain version stacks 18 base products per lane in int64
     # columns, so it runs over slices of the lane axis (2 windows each) ----
     g2 = g2_ops(curve, device)
-    nl = 22 * 2049 * 8
     small = torch.randint(1, 1 << 15, (1, nl), generator=gen, dtype=torch.int64)
     P2 = g2.scalar_mul(g2.encode_points([curve.g2_gen]),
                        small.to(torch.int32).to(device), nbits=15)
@@ -368,16 +464,17 @@ def phase_kernels(curve, device) -> list:
     one2 = ProjPoint(*((c[0][:, 100].contiguous(), c[1][:, 100].contiguous()) for c in P2))
     err = max(err, max(max_err(g, r) for g, r in zip(leaves(g2.add(P2, one2)),
                                                      leaves(g2_plain(P2, one2)))))
-    check(err == 0, f"ec_add_g2 disagrees with ec_add_g2_plain (max abs err {err})")
+    check(err == 0, f"ec_add_g2 (L={L}) disagrees with ec_add_g2_plain (max abs err {err})")
     dec = g2.decode_points(ProjPoint(*((c[0][:, 48:56], c[1][:, 48:56]) for c in got)))
     check(all(d is None for d in dec), "ec_add_g2: P + (-P) is not the identity")
     ms = time_cuda(lambda: g2.add(P2, Q2), 20)
     pms = timed_plain(lambda: g2_plain(P2, Q2))
     record("ec_add_g2", "ec_add.cu", "cocircom_tpu/ops/curve.py:223", err, ms, pms,
-           576 * nl, 42 * MADS_PER_MUL * nl, [8, 22, 2049, 8])
+           18 * W * nl, 42 * mpm * nl, [L, *wave])
     del P2, Q2, got, ref
 
-    emit({"phase": "kernels", "kernels": [k["name"] for k in out], "tolerance": 0,
+    emit({"phase": "kernels", "curve": curve.name, "limbs": L,
+          "kernels": [k["name"] for k in out], "tolerance": 0,
           "detail": [{k: v for k, v in r.items() if k in
                       ("name", "ms", "plain_ms", "bound_ms", "bound_by", "shape")}
                      for r in out],
@@ -387,59 +484,50 @@ def phase_kernels(curve, device) -> list:
 
 # -------------------------------------------------------- phase: prove_small
 
-def multiplier_chain(curve, n_mul: int, a_val: int):
-    """R1CS of y = a^(n_mul+1) as a chain of multiplications.  Wires: 0 = 1,
-    1 = y (public output), 2 = a (public input), 3.. = intermediates."""
-    from cocircom_tpu_torch.io.r1cs import R1CS
-
-    p = curve.fr.p
-    vals = [1, None, a_val % p]
-    cons = []
-    cur = 2
-    for i in range(n_mul):
-        out = 1 if i == n_mul - 1 else len(vals)
-        cons.append(([(cur, 1)], [(2, 1)], [(out, 1)]))
-        v = vals[cur] * vals[2] % p
-        if out == 1:
-            vals[1] = v
-        else:
-            vals.append(v)
-        cur = out
-    r1cs = R1CS(curve=curve, n_wires=len(vals), n_pub_out=1, n_pub_in=1, n_prv_in=0,
-                n_labels=len(vals), n_constraints=len(cons), constraints=cons,
-                wire_mapping=[])
-    return r1cs, vals
-
-
 def phase_prove_small(curve, device, n_mul: int) -> dict:
     """Returns the launch counts of the 3-party proof alone."""
     from cocircom_tpu_torch.ops import kernels
+
+    zkey, vk, shares, publics, setup_s = small_inputs(curve, device, n_mul, b"chip_smoke")
+    kernels.reset_launch_counts()
+    proofs, wall, _ = prove_rep3(curve, zkey, shares, device, traced=False)
+    counts = kernels.launch_counts()
+    check_small_proofs("prove_small", vk, proofs, publics)
+    emit({"phase": "prove_small", "constraints": n_mul,
+          "domain": zkey.domain_size, "setup_s": round(setup_s, 2),
+          "prove_s": round(wall, 3), "verified": True, "tamper_rejected": True})
+    return counts
+
+
+def small_inputs(curve, device, n_mul: int, seed: bytes):
+    """The hand-built multiplier chain over `curve` through the real setup
+    and the real loader: (zkey, vk, the parties' shares, publics, seconds the
+    host-side setup took)."""
+    from cocircom_tpu_torch.io.r1cs import multiplier_chain
     from cocircom_tpu_torch.io.witness import Witness
     from cocircom_tpu_torch.io.zkey import read_groth16_zkey
     from cocircom_tpu_torch.ops.field import ints_to_limbs_np
-    from cocircom_tpu_torch.snark.groth16_verify import verify_groth16
     from cocircom_tpu_torch.snark.setup import groth16_setup
     from cocircom_tpu_torch.snark.shared import split_witness_rep3
 
     t0 = time.perf_counter()
     r1cs, vals = multiplier_chain(curve, n_mul, 3)
-    zkey_bytes, vk = groth16_setup(r1cs, seed=b"chip_smoke")
+    zkey_bytes, vk = groth16_setup(r1cs, seed=seed)
     setup_s = time.perf_counter() - t0
     zkey = read_groth16_zkey(zkey_bytes, device=device)
-    wit = Witness(curve, len(vals), ints_to_limbs_np(vals, 8))
+    check(zkey.curve is curve, "the loader did not find the zkey's curve")
+    wit = Witness(curve, len(vals), ints_to_limbs_np(vals, -(-curve.fr.bits // 32)))
     shares = split_witness_rep3(wit, 2, seed=7, device=device)
-    kernels.reset_launch_counts()
-    proofs, wall, _ = prove_rep3(curve, zkey, shares, device, traced=False)
-    counts = kernels.launch_counts()
-    publics = [vals[1], vals[2]]
-    check(proofs[0] == proofs[1] == proofs[2], "prove_small: the parties' proofs differ")
-    check(verify_groth16(vk, proofs[0], publics), "prove_small: the verifier refused the proof")
+    return zkey, vk, shares, [vals[1], vals[2]], setup_s
+
+
+def check_small_proofs(phase: str, vk, proofs, publics) -> None:
+    from cocircom_tpu_torch.snark.groth16_verify import verify_groth16
+
+    check(proofs[0] == proofs[1] == proofs[2], f"{phase}: the parties' proofs differ")
+    check(verify_groth16(vk, proofs[0], publics), f"{phase}: the verifier refused the proof")
     check(not verify_groth16(vk, proofs[0], [publics[0], publics[1] + 1]),
-          "prove_small: the verifier accepted a changed public input")
-    emit({"phase": "prove_small", "constraints": r1cs.n_constraints,
-          "domain": zkey.domain_size, "setup_s": round(setup_s, 2),
-          "prove_s": round(wall, 3), "verified": True, "tamper_rejected": True})
-    return counts
+          f"{phase}: the verifier accepted a changed public input")
 
 
 # --------------------------------------------------------- phase: prove_full
@@ -524,7 +612,7 @@ def full_inputs(curve, device, log_n: int, gen: torch.Generator):
     return zkey, k_a, k_b2, shares, build_s
 
 
-def phase_prove_full(curve, device, log_n: int) -> dict:
+def phase_prove_full(curve, device, log_n: int, inputs) -> dict:
     """Returns the launch counts of the cold 3-party proof alone."""
     from cocircom_tpu_torch.mpc.driver import PlainDriver
     from cocircom_tpu_torch.ops import kernels
@@ -532,8 +620,8 @@ def phase_prove_full(curve, device, log_n: int) -> dict:
     from cocircom_tpu_torch.ops.field import get_field
 
     fr = get_field(curve.fr.p, curve.name + ".fr", device)
-    gen = torch.Generator().manual_seed(4242)
-    zkey, k_a, k_b2, shares, build_s = full_inputs(curve, device, log_n, gen)
+    gen = torch.Generator().manual_seed(4343)
+    zkey, k_a, k_b2, shares, build_s = inputs
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -553,18 +641,13 @@ def phase_prove_full(curve, device, log_n: int) -> dict:
 
     # one G1 and one G2 MSM against the known discrete log
     s_std = rand_field(fr, (zkey.n_vars,), gen)
-    s_int = fr.from_limbs(s_std)
-    for name, eng, ops, arr, ks, host in (
-            ("g1", d.msm_g1_engine, d.g1, d.g1_proj(zkey.a_query), k_a, host_mul_g1),
-            ("g2", d.msm_g2_engine, d.g2, d.g2_proj(zkey.b_g2_query), k_b2, host_mul_g2)):
+    for name, (eng, ops, arr, want) in msm_cases(curve, d, zkey, k_a, k_b2, fr, s_std).items():
         t1 = time.perf_counter()
         res = eng.msm(arr, s_std)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t1
         got = ops.decode_points(pmap(lambda c: c[:, None], res))[0]
-        total = int(sum(int(k) * int(s) for k, s in zip(ks.tolist(), s_int.tolist()))
-                    % curve.fr.p)
-        check(got == host(curve, total), f"prove_full: MSM {name} != (sum k_i s_i) G")
+        check(got == want, f"prove_full: MSM {name} != (sum k_i s_i) G")
         emit({"phase": "msm_check", "group": name, "n": int(zkey.n_vars),
               "seconds": round(dt, 3), "waves": eng.last_waves})
 
@@ -576,16 +659,164 @@ def phase_prove_full(curve, device, log_n: int) -> dict:
     return counts_cold
 
 
+def msm_cases(curve, d, zkey, k_a, k_b2, fr, s_std) -> dict:
+    """{group: (driver d's engine, curve ops, query points, the host's
+    (sum k_i s_i) G)} for one G1 and one G2 query of the synthetic zkey,
+    whose points are known multiples k_i of the generator."""
+    s_int = fr.from_limbs(s_std).tolist()
+
+    def known(ks, host):
+        return host(curve, sum(int(k) * int(v) for k, v in zip(ks.tolist(), s_int)))
+
+    return {"g1": (d.msm_g1_engine, d.g1, d.g1_proj(zkey.a_query), known(k_a, host_mul_g1)),
+            "g2": (d.msm_g2_engine, d.g2, d.g2_proj(zkey.b_g2_query), known(k_b2, host_mul_g2))}
+
+
+# ------------------------------------------------------ phase: prove_sharded
+
+def phase_prove_sharded(curve, device, log_n: int, inputs) -> dict:
+    """The device-sharded path at full width: the 3-party REP3 proof of
+    prove_full's zkey with every party's driver built with `devices`.
+    Returns the launch counts of that proof alone."""
+    from cocircom_tpu_torch.mpc.driver import PlainDriver
+    from cocircom_tpu_torch.ops import kernels
+    from cocircom_tpu_torch.ops.curve import pmap
+    from cocircom_tpu_torch.ops.field import get_field
+    from cocircom_tpu_torch.parallel.sharded import (ShardedMSMEngine, ShardedNTTEngine,
+                                                     device_list)
+
+    fr = get_field(curve.fr.p, curve.name + ".fr", device)
+    gen = torch.Generator().manual_seed(4444)
+    zkey, k_a, k_b2, shares, _ = inputs
+    devices = device_list(max(2, torch.cuda.device_count()))
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    proofs, cold, spans = prove_rep3(curve, zkey, shares, device, traced=True, devices=devices)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(proofs[0] == proofs[1] == proofs[2], "prove_sharded: the parties' proofs differ")
+    check(on_curve(curve, proofs[0]), "prove_sharded: a proof point is not on its curve")
+    check(counts["ec_wave_add"] > 0, "prove_sharded: ec_wave_add was never launched")
+
+    local = PlainDriver(curve, device=device)
+    dist = PlainDriver(curve, devices=devices)
+    check(isinstance(dist.msm_g1_engine, ShardedMSMEngine)
+          and isinstance(dist.msm_g2_engine, ShardedMSMEngine)
+          and isinstance(dist.ntt, ShardedNTTEngine), "prove_sharded: the engines are not sharded")
+
+    # a sharded 2^log_n NTT and iNTT against the local engine, bit for bit
+    x = rand_field(fr, (zkey.domain_size,), gen)
+    ntt_s = {}
+    for name in ("ntt", "intt"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = getattr(dist.ntt, name)(x)
+        torch.cuda.synchronize()
+        ntt_s[name] = round(time.perf_counter() - t1, 4)
+        check(torch.equal(got, getattr(local.ntt, name)(x)),
+              f"prove_sharded: the sharded {name} differs from the local engine's")
+
+    # the same scalars through the sharded and the local engine on one G1 and
+    # one G2 query: equal affine points, equal to the known discrete log
+    s_std = rand_field(fr, (zkey.n_vars,), gen)
+    local_cases = msm_cases(curve, local, zkey, k_a, k_b2, fr, s_std)
+    for name, (eng, ops, arr, want) in msm_cases(curve, dist, zkey, k_a, k_b2, fr, s_std).items():
+        kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        res = eng.msm(arr, s_std)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        c = kernels.launch_counts()
+        got = ops.decode_points(pmap(lambda t: t[:, None], res))[0]
+        loc = local_cases[name][0].msm(arr, s_std)
+        check(got == ops.decode_points(pmap(lambda t: t[:, None], loc))[0],
+              f"prove_sharded: sharded MSM {name} differs from the local engine's")
+        check(got == want, f"prove_sharded: sharded MSM {name} != (sum k_i s_i) G")
+        if name == "g1":
+            check(c["ec_madd"] == 0 and c["ec_wave_add"] == eng.last_waves > 0,
+                  "prove_sharded: the sharded G1 MSM did not run its waves through ec_wave_add")
+        emit({"phase": "sharded_msm_check", "group": name, "n": int(zkey.n_vars),
+              "seconds": round(dt, 3), "waves": eng.last_waves,
+              "ec_wave_add": c["ec_wave_add"], "ec_madd": c["ec_madd"]})
+
+    emit({"phase": "prove_sharded", "log_n": log_n, "devices": [str(d) for d in devices],
+          "constraints": zkey.matrices.num_constraints, "prove_cold_s": round(cold, 3),
+          "spans_party0": spans, "launches": {k: v for k, v in counts.items() if v},
+          "peak_device_bytes": int(peak),
+          "sharded_ntt_s": ntt_s, "proofs_identical": True, "on_curve": True})
+    return counts
+
+
+# ---------------------------------------------------------- phase: prove_bls
+
+def phase_prove_bls(device, n_mul: int) -> dict:
+    """The hand-built circuit over BLS12-381 (Fq: the 12-limb kernels; Fr: the
+    8-limb NTT kernels with its constants): one 3-party REP3 proof through
+    one-device drivers (mixed-add G1 waves) and one through sharded drivers
+    (`ec_wave_add`), both verified.  Returns the two proofs' launch counts."""
+    from cocircom_tpu_torch.fields.params import BLS12_381 as curve
+    from cocircom_tpu_torch.ops import kernels
+    from cocircom_tpu_torch.parallel.sharded import device_list
+
+    zkey, vk, shares, publics, setup_s = small_inputs(curve, device, n_mul, b"chip_smoke_bls")
+    devices = device_list(max(2, torch.cuda.device_count()))
+    kernels.reset_launch_counts()
+    proofs, wall, _ = prove_rep3(curve, zkey, shares, device, traced=False)
+    proofs_s, wall_s, _ = prove_rep3(curve, zkey, shares, device, traced=False, devices=devices)
+    counts = kernels.launch_counts()
+    check_small_proofs("prove_bls", vk, proofs, publics)
+    check_small_proofs("prove_bls (sharded)", vk, proofs_s, publics)
+    for k in ("mont_mul", "ec_add", "ec_madd", "ec_wave_add", "ec_add_g2"):
+        check(counts[kernels.count_key(k, 12)] > 0,
+              f"prove_bls: the 12-limb {k} was never launched")
+    emit({"phase": "prove_bls", "curve": curve.name, "constraints": n_mul,
+          "domain": zkey.domain_size, "setup_s": round(setup_s, 2),
+          "prove_s": round(wall, 3), "prove_sharded_s": round(wall_s, 3),
+          "verified": True, "tamper_rejected": True,
+          "launches": {k: v for k, v in counts.items() if v}})
+    return counts
+
+
+# -------------------------------------------------------------- phase: graft
+
+def phase_graft(curve, device) -> None:
+    """graft_entry's two entry points on the card."""
+    from cocircom_tpu_torch import graft_entry
+    from cocircom_tpu_torch.ops.curve import ProjPoint, g1_ops, pmap
+    from cocircom_tpu_torch.ops.field import get_field
+    from cocircom_tpu_torch.ops.msm import msm_engine
+
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    x, y, z = fn(*args)
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    check(all(t.is_cuda and tuple(t.shape) == (8,) for t in (x, y, z)),
+          "graft: entry() did not return one G1 point on the card")
+    # the same step through the local engine's mixed-add MSM
+    fr = get_field(curve.fr.p, curve.name + ".fr", device)
+    ops = g1_ops(curve, device)
+    a, b, c, px, py, pz = args
+    want = msm_engine(ops).msm(ProjPoint(px, py, pz), fr.from_mont(fr.sub(fr.mont_mul(a, b), c)))
+    dec = lambda pt: ops.decode_points(pmap(lambda t: t[:, None], pt))[0]  # noqa: E731
+    check(dec(ProjPoint(x, y, z)) == dec(want), "graft: entry() disagrees with the MSM engine")
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(2)
+    torch.cuda.synchronize()
+    emit({"phase": "graft", "entry_s": round(entry_s, 3),
+          "dryrun_multichip_2_s": round(time.perf_counter() - t0, 3)})
+
+
 # ------------------------------------------------- phase: profile (optional)
 
-def phase_profile(curve, device, log_n: int) -> None:
+def phase_profile(curve, device, log_n: int, inputs) -> None:
     """One warm 3-party proof of prove_full's size under torch.profiler
     (device activity only): the share of the wall time in which the card ran
     a kernel, and the device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    zkey, _, _, shares, _ = full_inputs(curve, device, log_n,
-                                        torch.Generator().manual_seed(4242))
+    zkey, _, _, shares, _ = inputs
     prove_rep3(curve, zkey, shares, device, traced=False)      # cold, not profiled
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall, _ = prove_rep3(curve, zkey, shares, device, traced=False)
@@ -609,6 +840,31 @@ def phase_profile(curve, device, log_n: int) -> None:
 
 # --------------------------------------------------------------------- main
 
+def ptxas_report(build_dir) -> dict:
+    """{kernel_l<limbs>: {"registers": r, "spill_store_bytes": s,
+    "spill_load_bytes": l}} for every __global__ instantiation, from the
+    `-Xptxas -v` logs the build keeps beside the libraries."""
+    entry = re.compile(r"Compiling entry function '(_Z\d+([a-z0-9_]+?)_kernelILi(\d+)E\w*)'")
+    spill = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+    out = {}
+    for log in sorted(build_dir.glob("lib*.log")):
+        cur = mangled = props = None
+        for line in log.read_text().splitlines():
+            m = entry.search(line)
+            if m:
+                mangled, cur = m.group(1), f"{m.group(2)}_l{m.group(3)}"
+                out[cur] = {}
+            elif "Function properties for" in line:
+                props = line.rsplit(" ", 1)[-1]
+            elif cur and props == mangled and spill.search(line):
+                m = spill.search(line)
+                out[cur].update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                                spill_load_bytes=int(m.group(3)))
+            elif cur and "Used" in line and "registers" in line:
+                out[cur]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
@@ -619,6 +875,7 @@ def main() -> None:
         if p not in ALL_PHASES + OPTIONAL_PHASES:
             fail(f"unknown phase {p!r}")
 
+    from cocircom_tpu_torch.fields.params import BLS12_381
     from cocircom_tpu_torch.fields.params import BN254 as curve
 
     if not torch.cuda.is_available():
@@ -626,11 +883,13 @@ def main() -> None:
               file=sys.stderr)
         sys.exit(2)
     device = "cuda"
-    if ("prove_full" in phases or "profile" in phases) and args.full_log < 18:
-        fail("prove_full runs at 2^18 constraints or more")
+    full_sized = [p for p in ("prove_full", "prove_sharded", "profile") if p in phases]
+    if full_sized and args.full_log < 18:
+        fail("prove_full and prove_sharded run at 2^18 constraints or more")
 
     from cocircom_tpu_torch.ops import kernels
 
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
@@ -642,32 +901,58 @@ def main() -> None:
         kernels.build_all()
         kernels.load_all()
         emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
-              "kernels": list(kernels.KERNELS), "dir": str(kernels.build_dir().name)})
+              "kernels": list(kernels.KERNELS), "limbs": list(kernels.LIMBS),
+              "dir": str(kernels.build_dir().name), "ptxas": ptxas_report(kernels.build_dir())})
     if "device" in phases:
         emit({"phase": "device", "nvidia_smi": smi_line,
               "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    rows = phase_kernels(curve, device) if "kernels" in phases else []
+    rows = []
+    if "kernels" in phases:
+        rows = phase_kernels(curve, device) + phase_kernels(BLS12_381, device)
 
-    zero = {k: 0 for k in kernels.KERNELS}
-    small = phase_prove_small(curve, device, SMALL_MULS) if "prove_small" in phases else zero
-    full = phase_prove_full(curve, device, args.full_log) if "prove_full" in phases else zero
-    counts = {k: small[k] + full[k] for k in kernels.KERNELS}
-    emit({"phase": "launches", "prove_small": small, "prove_full_cold": full})
-
+    zero = {k: 0 for k in kernels.COUNT_KEYS}
+    runs = {"prove_small": zero, "prove_full_cold": zero, "prove_sharded": zero, "prove_bls": zero}
+    if "prove_small" in phases:
+        runs["prove_small"] = phase_prove_small(curve, device, SMALL_MULS)
+    inputs = None
+    if full_sized:
+        inputs = full_inputs(curve, device, args.full_log, torch.Generator().manual_seed(4242))
+    if "prove_full" in phases:
+        runs["prove_full_cold"] = phase_prove_full(curve, device, args.full_log, inputs)
+    if "prove_sharded" in phases:
+        runs["prove_sharded"] = phase_prove_sharded(curve, device, args.full_log, inputs)
     if "profile" in phases:
-        phase_profile(curve, device, args.full_log)
+        phase_profile(curve, device, args.full_log, inputs)
+    del inputs
+    if "prove_bls" in phases:
+        runs["prove_bls"] = phase_prove_bls(device, BLS_MULS)
+    if "graft" in phases:
+        phase_graft(curve, device)
+    counts = {k: sum(r[k] for r in runs.values()) for k in kernels.COUNT_KEYS}
+    emit({"phase": "launches", **{name: {k: v for k, v in r.items() if v}
+                                  for name, r in runs.items()}})
 
     if set(phases) != set(ALL_PHASES):
-        emit({"phase": "partial", "phases": phases, "launches": counts})
+        emit({"phase": "partial", "phases": phases,
+              "launches": {k: v for k, v in counts.items() if v},
+              "seconds": round(time.perf_counter() - t_start, 1)})
         print(smi_line, flush=True)
         return
 
     for r in rows:
         r["launches"] = counts[r["name"]]
-        check(r["launches"] > 0, f"kernel {r['name']} was never launched on the proving path")
+    # the 12-limb builds of the two NTT kernels are held to their plain
+    # versions above, but no path runs them (both curves' Fr has 8 limbs):
+    # they are reported apart and the line below lists the paths' kernels
+    off_path = [r for r in rows if r["name"] in ("ntt_butterfly_l12", "ntt_columns_l12")]
+    rows = [r for r in rows if r not in off_path]
+    emit({"phase": "kernels_off_path", "kernels": off_path})
+    for r in rows:
+        check(r["launches"] > 0, f"kernel {r['name']} was never launched on a proving path")
     check(not any(t.name.startswith("party-") for t in threading.enumerate()),
           "a party's thread is still alive")
+    emit({"phase": "total", "seconds": round(time.perf_counter() - t_start, 1)})
     print(smi_line, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

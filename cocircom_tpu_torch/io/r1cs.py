@@ -80,3 +80,26 @@ def read_r1cs(data: bytes) -> R1CS:
         constraints=constraints,
         wire_mapping=[int(x) for x in mapping],
     )
+
+
+def multiplier_chain(curve: CurveParams, n_mul: int, a_val: int):
+    """A hand-built fixture circuit: y = a^(n_mul+1) as a chain of n_mul
+    multiplications.  Wires: 0 = 1, 1 = y (public output), 2 = a (public
+    input), 3.. = intermediates.  Returns (r1cs, witness values as ints)."""
+    p = curve.fr.p
+    vals = [1, None, a_val % p]
+    cons = []
+    cur = 2
+    for i in range(n_mul):
+        out = 1 if i == n_mul - 1 else len(vals)
+        cons.append(([(cur, 1)], [(2, 1)], [(out, 1)]))
+        v = vals[cur] * vals[2] % p
+        if out == 1:
+            vals[1] = v
+        else:
+            vals.append(v)
+        cur = out
+    r1cs = R1CS(curve=curve, n_wires=len(vals), n_pub_out=1, n_pub_in=1, n_prv_in=0,
+                n_labels=len(vals), n_constraints=len(cons), constraints=cons,
+                wire_mapping=[])
+    return r1cs, vals

@@ -148,9 +148,10 @@ def read_groth16_zkey(data: bytes, device=None) -> Groth16ZKey:
     off += n8r
     n_vars, n_public, domain_size = struct.unpack_from("<III", hdr, off)
     off += 12
-    curve = curve_by_name("bn254")
-    if not (curve.fq.p == q and curve.fr.p == r):
-        raise ValueError("zkey is not over BN254 (the only curve of this port so far)")
+    curve = next((c for c in map(curve_by_name, ("bn254", "bls12_381"))
+                  if c.fq.p == q and c.fr.p == r), None)
+    if curve is None:
+        raise ValueError("unknown curve moduli in zkey header")
     if domain_size == 0 or domain_size & (domain_size - 1):
         raise ValueError(f"domain size {domain_size} not a power of two")
     fq = get_field(curve.fq.p, curve.name + ".fq", device)

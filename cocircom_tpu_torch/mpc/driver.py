@@ -2,7 +2,10 @@
 
 The prover is written ONCE, generic over a driver.  Communication-free
 methods are local; methods that need a round go through the driver's
-network.  Every driver carries an explicit `device` (default: the card).
+network.  Every driver carries an explicit `device` (default: the card), or
+a list `devices` of more than one, in which case its NTT and MSM engines are
+the device-sharded ones of parallel/sharded.py and `device` is the first of
+the list.
 
 Share-vector representation per driver:
   Plain : raw (L, N) Montgomery limb tensors
@@ -54,21 +57,44 @@ def as_index(idx, device) -> torch.Tensor:
 
 class Driver:
     """Base: holds field/curve engines on one device.  Subclasses define
-    share semantics."""
+    share semantics.
+
+    With `devices` (a list of more than one torch device; one device may be
+    named several times) the NTT and MSM engines are the SHARDED ones of
+    parallel/sharded.py: every prover MSM and (i)NTT is split over the list
+    and combined on its first device, bit-exact with the one-device engines.
+    Everything else runs on that first device."""
 
     protocol = "abstract"
 
-    def __init__(self, curve: CurveParams, device=None):
+    def __init__(self, curve: CurveParams, device=None, devices=None):
         self.curve = curve
+        self.devices = None
+        if devices is not None:
+            if device is not None:
+                raise ValueError("give a driver `device` or `devices`, not both")
+            devices = tuple(resolve_device(d) for d in devices)
+            device = devices[0]
+            if len(devices) > 1:
+                self.devices = devices
         self.device = resolve_device(device)
         self.fr = get_field(curve.fr.p, curve.name + ".fr", self.device)
         self.fq = get_field(curve.fq.p, curve.name + ".fq", self.device)
         self.g1 = g1_ops(curve, self.device)
         self.g2 = g2_ops(curve, self.device)
         bits = curve.fr.p.bit_length()
-        self.ntt = ntt_engine(self.fr, curve.fr)
-        self.msm_g1_engine = msm_engine(self.g1, scalar_bits=bits)
-        self.msm_g2_engine = msm_engine(self.g2, scalar_bits=bits)
+        if self.devices is not None:
+            from ..parallel.sharded import ShardedMSMEngine, sharded_ntt_engine
+
+            self.ntt = sharded_ntt_engine(self.fr, curve.fr, self.devices)
+            self.msm_g1_engine = ShardedMSMEngine(
+                lambda d: g1_ops(curve, d), self.devices, scalar_bits=bits)
+            self.msm_g2_engine = ShardedMSMEngine(
+                lambda d: g2_ops(curve, d), self.devices, scalar_bits=bits)
+        else:
+            self.ntt = ntt_engine(self.fr, curve.fr)
+            self.msm_g1_engine = msm_engine(self.g1, scalar_bits=bits)
+            self.msm_g2_engine = msm_engine(self.g2, scalar_bits=bits)
 
     # ---- helpers shared by drivers ----
 
@@ -109,8 +135,8 @@ class PlainDriver(Driver):
 
     protocol = "plain"
 
-    def __init__(self, curve: CurveParams, seed: int = 0, device=None):
-        super().__init__(curve, device=device)
+    def __init__(self, curve: CurveParams, seed: int = 0, device=None, devices=None):
+        super().__init__(curve, device=device, devices=devices)
         from ..utils.chacha import ChaChaStream
 
         self._stream = ChaChaStream(seed ^ 0x9E3779B9, domain=0, device=self.device)

@@ -80,8 +80,8 @@ def combine_field_shares(f: Field, shares: list[Rep3FieldShare]):
 class Rep3Driver(Driver):
     protocol = "rep3"
 
-    def __init__(self, curve: CurveParams, net: Network, device=None):
-        super().__init__(curve, device=device)
+    def __init__(self, curve: CurveParams, net: Network, device=None, devices=None):
+        super().__init__(curve, device=device, devices=devices)
         self.net = net
         self.id = net.id
         # PRF setup: exchange 256-bit seeds with the next party

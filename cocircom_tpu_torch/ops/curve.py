@@ -9,8 +9,10 @@ ALL inputs (identity, doubling, inverses).  Identity is (0 : 1 : 0).
 instantiation for G1 over Fq and one for G2 over Fq2).  The plain versions
 are taken only for CPU tensors: `ec_add_plain` for G1 and `ec_add_g2_plain`
 for G2, the three-wave stacked-multiply composition over `mont_mul_plain`
-and the plain add and subtract.  The MSM's mixed add (csrc/ec_madd.cu) and
-its plain version `ec_madd_plain` live here too.
+and the plain add and subtract.  The MSM's two wave updates live here too:
+the mixed add (csrc/ec_madd.cu, plain version `ec_madd_plain`) and the
+masked complete add with per-lane negation (csrc/ec_wave_add.cu, plain
+version `ec_wave_add_plain`).
 """
 
 from __future__ import annotations
@@ -303,6 +305,22 @@ def ec_madd_plain(f: Field, acc: ProjPoint, rows, valid) -> ProjPoint:
     return ProjPoint(*out)
 
 
+def ec_wave_add_plain(f: Field, b3_mont: torch.Tensor, acc: ProjPoint, rows, neg,
+                      valid) -> ProjPoint:
+    """acc <- valid ? acc + (neg ? -pt : pt) : acc in plain torch: the same
+    function as the CUDA kernel `ec_wave_add`, either device, out of place.
+    rows (n, 3L): row i = [x | y | z limbs] of lane i's projective point;
+    neg, valid (n,) bool.  Negate, `ec_add_plain`, select."""
+    L = f.L
+    batch = tuple(acc.x.shape[1:])
+    t = rows.t()
+    x2, y2, z2 = (t[k * L:(k + 1) * L].reshape((L,) + batch) for k in range(3))
+    y2 = f.select(neg.reshape(batch), f.neg(y2), y2)
+    added = ec_add_plain(f, b3_mont, acc, ProjPoint(x2, y2, z2))
+    keep = valid.reshape(batch)
+    return ProjPoint(*(f.select(keep, a, o) for a, o in zip(added, acc)))
+
+
 def ec_add_g2_plain(ops: "CurveOps", p: ProjPoint, q: ProjPoint) -> ProjPoint:
     """Complete projective G2 add (RCB16 Alg. 7, a = 0) over Fq2 in plain
     torch: the same function as the CUDA kernel `ec_add_g2`, either device.
@@ -343,6 +361,16 @@ def ec_madd(f: Field, acc: ProjPoint, rows, valid) -> ProjPoint:
         kernels.ec_madd(tuple(acc), rows, valid, f.kconsts)
         return acc
     return ec_madd_plain(f, acc, rows, valid)
+
+
+def ec_wave_add(ops: "CurveOps", acc: ProjPoint, rows, neg, valid) -> ProjPoint:
+    """The wave update of the complete-add MSM path (G1).  On CUDA tensors
+    the kernel updates `acc` IN PLACE (the caller owns it) and the same
+    tensors are returned."""
+    if acc.x.is_cuda:
+        kernels.ec_wave_add(tuple(acc), rows, neg, valid, ops._kconsts)
+        return acc
+    return ec_wave_add_plain(ops.lane.f, ops._b3_mont, acc, rows, neg, valid)
 
 
 class CurveOps:

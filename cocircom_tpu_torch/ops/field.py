@@ -3,12 +3,13 @@
 Representation (decided once, here):
   * A field element is ``L`` limbs of 32 bits, least significant first,
     stored as bit patterns in ``torch.int32`` (``torch.uint32`` has almost
-    no operators on the CPU).  BN254 Fr and Fq have L = 8.
+    no operators on the CPU).  BN254 Fr and Fq and BLS12-381 Fr have L = 8,
+    BLS12-381 Fq has L = 12.
   * Tensors are **limb-axis-first**, shape ``(L, *batch)``: thread j of a
     kernel reads limb i of element j at ``i * n + j``, so neighbouring
     threads read neighbouring addresses.
-  * Montgomery domain with R = 2^(32 L) = 2^256 for BN254, the R that the
-    circom/snarkjs file formats use, so zkey and wtns bytes load by
+  * Montgomery domain with R = 2^(32 L) (2^256, and 2^384 for BLS12-381 Fq),
+    the R that the circom/snarkjs file formats use, so zkey and wtns bytes load by
     reinterpretation.  It is also the R of the JAX package, whose elements
     are 2L limbs of 16 bits held in uint32: ``pack16_to_32`` and
     ``unpack32_to_16`` convert by pairing limbs, with no arithmetic.

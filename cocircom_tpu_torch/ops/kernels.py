@@ -1,8 +1,11 @@
 """Lazy builder, loader and wrappers of the hand-written CUDA kernels.
 
 The sources live in ``cocircom_tpu_torch/csrc`` (one ``.cu`` per kernel over
-the shared header ``field.cuh``).  At first use every source is compiled by
-its own ``nvcc`` process, all started together, into
+the shared headers ``field.cuh`` and ``curve.cuh``).  Every kernel is a
+template over the limb count and is built for 8 limbs (BN254 Fr and Fq,
+BLS12-381 Fr) and 12 limbs (BLS12-381 Fq); a wrapper takes the limb count
+from its operands and the C entry point dispatches.  At first use every
+source is compiled by its own ``nvcc`` process, all started together, into
 ``cocircom_tpu_torch/_build/<hash of the sources>/`` as a shared library
 with a plain C interface, and loaded with ``ctypes``.  Importing this
 module needs neither ``nvcc`` nor a card.
@@ -10,10 +13,11 @@ module needs neither ``nvcc`` nor a card.
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 the kernel does not take, allocates outputs with ``torch.empty``, launches
 on ``torch.cuda.current_stream()``, raises if the C function returns a
-non-zero ``cudaGetLastError()``, and adds one to its launch count.  There is
-no fallback: a wrapper launches its kernel or raises.  The plain PyTorch
-version of each kernel lives beside its caller (ops/field.py, ops/ntt.py,
-ops/curve.py) and is taken there only for CPU tensors.
+non-zero ``cudaGetLastError()``, and adds one to its launch count (kept per
+kernel and limb count: ``mont_mul`` for 8 limbs, ``mont_mul_l12`` for 12).
+There is no fallback: a wrapper launches its kernel or raises.  The plain
+PyTorch version of each kernel lives beside its caller (ops/field.py,
+ops/ntt.py, ops/curve.py) and is taken there only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -30,20 +34,42 @@ from pathlib import Path
 import torch
 
 # one .cu (and one shared library) per source; every counted entry point
-SOURCES = ("mont_mul", "ntt_butterfly", "ntt_columns", "ec_add", "ec_madd")
+SOURCES = ("mont_mul", "ntt_butterfly", "ntt_columns", "ec_add", "ec_madd", "ec_wave_add")
 KERNELS = SOURCES + ("ec_add_g2",)
 _ENTRY_SOURCE = {"ec_add_g2": "ec_add"}  # entry points that share a source
-L = 8  # 32-bit limbs per element (BN254 Fr and Fq)
+LIMBS = (8, 12)  # 32-bit limbs per element the kernels are instantiated for
+# The function of the JAX package (cocircom_tpu/ops/pallas_*.py) that each
+# kernel takes the place of; the G2 add replaces an XLA composition.
+REPLACES = {
+    "mont_mul": "pallas_field.mont_mul_pallas",
+    "ntt_butterfly": "pallas_field.butterfly_pallas",
+    "ntt_columns": "pallas_ntt.fourstep_ntt",
+    "ec_add": "pallas_curve.ec_add_pallas",
+    "ec_madd": "pallas_curve.ec_madd_pallas",
+    "ec_wave_add": "pallas_curve.ec_wave_add_pallas",
+    "ec_add_g2": None,
+}
+
+
+def count_key(name: str, limbs: int) -> str:
+    """The launch count's name: the kernel's own for 8 limbs, else with the
+    limb count appended."""
+    return name if limbs == 8 else f"{name}_l{limbs}"
+
+
+COUNT_KEYS = tuple(count_key(k, n) for n in LIMBS for k in KERNELS)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
+# -Xptxas -v: registers and spill bytes of every instantiation go to the
+# build log kept beside each library (lib<kernel>.log)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs: dict = {}
-_counts = {k: 0 for k in KERNELS}
+_counts = {k: 0 for k in COUNT_KEYS}
 _count_lock = threading.Lock()
 
 
@@ -133,6 +159,7 @@ def build_all() -> Path:
             if proc.returncode != 0:
                 failed.append(f"{k}: nvcc exit {proc.returncode}\n{log}")
                 continue
+            (out / f"lib{k}.log").write_text(log)
             os.replace(tmp, out / f"lib{k}.so")
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -140,20 +167,23 @@ def build_all() -> Path:
 
 
 _VP, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# every entry point ends with: limbs, consts, stream
+_TAIL = [_I, _VP, _VP]
 _ARGTYPES = {
-    # a, b, out, n, a_bcast, b_bcast, consts, stream
-    "mont_mul": [_VP, _VP, _VP, _LL, _I, _I, _VP, _VP],
-    # e, o, w, out_e, out_o, n, consts, stream
-    "ntt_butterfly": [_VP, _VP, _VP, _VP, _VP, _LL, _VP, _VP],
-    # x, tw, out, logm, B, cols_per_block, consts, stream
-    "ntt_columns": [_VP, _VP, _VP, _I, _LL, _I, _VP, _VP],
-    # x1 y1 z1 x2 y2 z2 ox oy oz, n, p_bcast, q_bcast, consts, stream
-    "ec_add": [_VP] * 9 + [_LL, _I, _I, _VP, _VP],
-    # x y z (updated in place), rows, valid, n, consts, stream
-    "ec_madd": [_VP] * 5 + [_LL, _VP, _VP],
-    # in[12], out[6] (host arrays of device pointers), n, p_bcast, q_bcast,
-    # consts, stream
-    "ec_add_g2": [_VP, _VP, _LL, _I, _I, _VP, _VP],
+    # a, b, out, n, a_bcast, b_bcast
+    "mont_mul": [_VP, _VP, _VP, _LL, _I, _I] + _TAIL,
+    # e, o, w, out_e, out_o, n
+    "ntt_butterfly": [_VP, _VP, _VP, _VP, _VP, _LL] + _TAIL,
+    # x, tw, out, logm, B, cols_per_block
+    "ntt_columns": [_VP, _VP, _VP, _I, _LL, _I] + _TAIL,
+    # x1 y1 z1 x2 y2 z2 ox oy oz, n, p_bcast, q_bcast
+    "ec_add": [_VP] * 9 + [_LL, _I, _I] + _TAIL,
+    # x y z (updated in place), rows, valid, n
+    "ec_madd": [_VP] * 5 + [_LL] + _TAIL,
+    # x y z (updated in place), rows, neg, valid, n
+    "ec_wave_add": [_VP] * 6 + [_LL] + _TAIL,
+    # in[12], out[6] (host arrays of device pointers), n, p_bcast, q_bcast
+    "ec_add_g2": [_VP, _VP, _LL, _I, _I] + _TAIL,
 }
 
 
@@ -183,13 +213,28 @@ def load_all() -> None:
 
 # ---------------------------------------------------------------- wrappers
 
-def _check(name: str, t: torch.Tensor, what: str) -> None:
+def _check(name: str, t: torch.Tensor, what: str) -> int:
+    """Raise unless `t` is a CUDA int32 limb tensor; returns its limb count."""
     if not isinstance(t, torch.Tensor) or not t.is_cuda:
         raise ValueError(f"{name}: {what} must be a CUDA tensor")
     if t.dtype != torch.int32:
         raise ValueError(f"{name}: {what} must be int32, got {t.dtype}")
-    if t.dim() < 1 or t.shape[0] != L:
-        raise ValueError(f"{name}: {what} must have {L} limbs on axis 0")
+    if t.dim() < 1 or t.shape[0] not in LIMBS:
+        raise ValueError(f"{name}: {what} must have {LIMBS[0]} or {LIMBS[1]} limbs on axis 0")
+    return t.shape[0]
+
+
+def _same_limbs(name: str, counts) -> int:
+    counts = set(counts)
+    if len(counts) != 1:
+        raise ValueError(f"{name}: operands differ in limb count: {sorted(counts)}")
+    return counts.pop()
+
+
+def _consts_ptr(name: str, consts, limbs: int) -> int:
+    if len(consts) != 3 * limbs + 1:
+        raise ValueError(f"{name}: the constant block is not that of a {limbs}-limb field")
+    return ctypes.addressof(consts)
 
 
 def _stream() -> int:
@@ -204,16 +249,21 @@ def _on(device: torch.device):
     return torch.cuda.device(device)
 
 
-def _launch(name: str, *args) -> None:
-    err = _lib(name)(*args)
+def _launch(name: str, limbs: int, consts, device, *args) -> None:
+    """Launch cc_<name> on `device`'s current stream with the common tail
+    (limbs, consts, stream); raise on a refused launch; count it."""
+    cptr = _consts_ptr(name, consts, limbs)
+    with _on(device):
+        err = _lib(name)(*args, limbs, cptr, _stream())
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
-    _count(name)
+    _count(count_key(name, limbs))
 
 
 def _flat_or_single(t, batch):
     """(pointer-ready tensor, broadcast flag): a size-1 batch is passed once
     and broadcast inside the kernel; anything else is expanded."""
+    L = t.shape[0]
     n = 1
     for d in batch:
         n *= d
@@ -227,17 +277,15 @@ def _flat_or_single(t, batch):
 
 def mont_mul(a: torch.Tensor, b: torch.Tensor, consts) -> torch.Tensor:
     """a*b*R^-1 mod p elementwise over broadcast (L, *batch) limbs."""
-    _check("mont_mul", a, "a")
-    _check("mont_mul", b, "b")
+    L = _same_limbs("mont_mul", (_check("mont_mul", a, "a"), _check("mont_mul", b, "b")))
     batch = broadcast_shapes(a.shape[1:], b.shape[1:])
     a2, a_bc = _flat_or_single(a, batch)
     b2, b_bc = _flat_or_single(b, batch)
     out = torch.empty((L,) + tuple(batch), dtype=torch.int32, device=a.device)
     n = out.numel() // L
     if n:
-        with _on(a.device):
-            _launch("mont_mul", a2.data_ptr(), b2.data_ptr(), out.data_ptr(), n,
-                    a_bc, b_bc, ctypes.addressof(consts), _stream())
+        _launch("mont_mul", L, consts, a.device, a2.data_ptr(), b2.data_ptr(),
+                out.data_ptr(), n, a_bc, b_bc)
     return out
 
 
@@ -250,12 +298,10 @@ def ntt_butterfly(e, o, w, consts):
                              "tensors of one shape")
     oe = torch.empty_like(e)
     oo = torch.empty_like(e)
-    n = e.shape[1]
+    L, n = e.shape
     if n:
-        with _on(e.device):
-            _launch("ntt_butterfly", e.data_ptr(), o.data_ptr(), w.data_ptr(),
-                    oe.data_ptr(), oo.data_ptr(), n,
-                    ctypes.addressof(consts), _stream())
+        _launch("ntt_butterfly", L, consts, e.device, e.data_ptr(), o.data_ptr(),
+                w.data_ptr(), oe.data_ptr(), oo.data_ptr(), n)
     return oe, oo
 
 
@@ -270,7 +316,7 @@ def ntt_columns(x, tw, consts):
     _check("ntt_columns", tw, "tw")
     if x.dim() != 3 or not x.is_contiguous() or not tw.is_contiguous():
         raise ValueError("ntt_columns: x must be contiguous (L, M, B)")
-    _, M, B = x.shape
+    L, M, B = x.shape
     logm = M.bit_length() - 1
     if (1 << logm) != M or not 1 <= logm <= NTT_COLUMNS_MAX_LOG:
         raise ValueError(f"ntt_columns: M={M} must be a power of two in [2, 1024]")
@@ -281,39 +327,38 @@ def ntt_columns(x, tw, consts):
         cb //= 2
     out = torch.empty_like(x)
     if B:
-        with _on(x.device):
-            _launch("ntt_columns", x.data_ptr(), tw.data_ptr(), out.data_ptr(),
-                    logm, B, cb, ctypes.addressof(consts), _stream())
+        _launch("ntt_columns", L, consts, x.device, x.data_ptr(), tw.data_ptr(),
+                out.data_ptr(), logm, B, cb)
     return out
 
 
 def _coords(name, pt, batch):
-    out, flag = [], None
+    """(pointer-ready coordinates, broadcast flag, limb count) of one point."""
+    out, flag, limbs = [], None, []
     for c in pt:
-        _check(name, c, "coordinate")
+        limbs.append(_check(name, c, "coordinate"))
         c2, bc = _flat_or_single(c, batch)
         if flag is not None and bc != flag:
             raise ValueError(f"{name}: coordinates of one point differ in shape")
         flag = bc
         out.append(c2)
-    return out, flag
+    return out, flag, _same_limbs(name, limbs)
 
 
 def ec_add(p, q, consts):
     """Complete projective G1 add on 3 x (L, *batch) coordinate tensors; a
     single point on either side is broadcast.  Returns (X3, Y3, Z3)."""
     batch = broadcast_shapes(p[0].shape[1:], q[0].shape[1:])
-    pc, p_bc = _coords("ec_add", p, batch)
-    qc, q_bc = _coords("ec_add", q, batch)
+    pc, p_bc, lp = _coords("ec_add", p, batch)
+    qc, q_bc, lq = _coords("ec_add", q, batch)
+    L = _same_limbs("ec_add", (lp, lq))
     dev = pc[0].device
     outs = [torch.empty((L,) + tuple(batch), dtype=torch.int32, device=dev)
             for _ in range(3)]
     n = outs[0].numel() // L
     if n:
-        with _on(dev):
-            _launch("ec_add", *(c.data_ptr() for c in pc), *(c.data_ptr() for c in qc),
-                    *(o.data_ptr() for o in outs), n, p_bc, q_bc,
-                    ctypes.addressof(consts), _stream())
+        _launch("ec_add", L, consts, dev, *(c.data_ptr() for c in pc),
+                *(c.data_ptr() for c in qc), *(o.data_ptr() for o in outs), n, p_bc, q_bc)
     return tuple(outs)
 
 
@@ -322,8 +367,9 @@ def ec_add_g2(p, q, consts):
     (L, *batch) tensors over Fq2; a single point on either side is
     broadcast.  Returns ((X0, X1), (Y0, Y1), (Z0, Z1))."""
     batch = broadcast_shapes(p[0][0].shape[1:], q[0][0].shape[1:])
-    pc, p_bc = _coords("ec_add_g2", [c for pair in p for c in pair], batch)
-    qc, q_bc = _coords("ec_add_g2", [c for pair in q for c in pair], batch)
+    pc, p_bc, lp = _coords("ec_add_g2", [c for pair in p for c in pair], batch)
+    qc, q_bc, lq = _coords("ec_add_g2", [c for pair in q for c in pair], batch)
+    L = _same_limbs("ec_add_g2", (lp, lq))
     dev = pc[0].device
     outs = [torch.empty((L,) + tuple(batch), dtype=torch.int32, device=dev)
             for _ in range(6)]
@@ -331,10 +377,33 @@ def ec_add_g2(p, q, consts):
     if n:
         ins = (ctypes.c_void_p * 12)(*(c.data_ptr() for c in pc + qc))
         outp = (ctypes.c_void_p * 6)(*(o.data_ptr() for o in outs))
-        with _on(dev):
-            _launch("ec_add_g2", ctypes.addressof(ins), ctypes.addressof(outp), n,
-                    p_bc, q_bc, ctypes.addressof(consts), _stream())
+        _launch("ec_add_g2", L, consts, dev, ctypes.addressof(ins), ctypes.addressof(outp),
+                n, p_bc, q_bc)
     return ((outs[0], outs[1]), (outs[2], outs[3]), (outs[4], outs[5]))
+
+
+def _acc_lanes(name: str, acc) -> tuple:
+    """(limb count, lanes) of an accumulator that a kernel updates in place."""
+    limbs = []
+    for c in acc:
+        limbs.append(_check(name, c, "acc coordinate"))
+        if not c.is_contiguous() or c.shape != acc[0].shape:
+            raise ValueError(f"{name}: acc coordinates must be contiguous and alike")
+    L = _same_limbs(name, limbs)
+    return L, acc[0].numel() // L
+
+
+def _check_rows(name: str, rows, n: int, width: int) -> None:
+    if not rows.is_cuda or rows.dtype != torch.int32 or not rows.is_contiguous() \
+            or tuple(rows.shape) != (n, width) or rows.data_ptr() % 16:
+        raise ValueError(f"{name}: rows must be a contiguous, 16-byte aligned CUDA int32 "
+                         f"({n}, {width}) tensor")
+
+
+def _check_mask(name: str, mask, what: str, n: int) -> None:
+    if not mask.is_cuda or mask.dtype != torch.bool or mask.numel() != n \
+            or not mask.is_contiguous():
+        raise ValueError(f"{name}: {what} must be a contiguous CUDA bool tensor of {n} lanes")
 
 
 def ec_madd(acc, rows, valid, consts):
@@ -342,19 +411,25 @@ def ec_madd(acc, rows, valid, consts):
     accumulator tensors.  rows: (n, 2L) int32, row i = [x limbs | y limbs] of
     lane i's affine point ((0, 0) = identity: lane unchanged); valid: (n,)
     bool, False = lane unchanged.  Returns acc."""
-    for c in acc:
-        _check("ec_madd", c, "acc coordinate")
-        if not c.is_contiguous() or c.shape != acc[0].shape:
-            raise ValueError("ec_madd: acc coordinates must be contiguous and alike")
-    n = acc[0].numel() // L
-    if not rows.is_cuda or rows.dtype != torch.int32 or not rows.is_contiguous() \
-            or tuple(rows.shape) != (n, 2 * L):
-        raise ValueError("ec_madd: rows must be a contiguous CUDA int32 (n, 2L) tensor")
-    if not valid.is_cuda or valid.dtype != torch.bool or valid.numel() != n \
-            or not valid.is_contiguous():
-        raise ValueError("ec_madd: valid must be a contiguous CUDA bool tensor of n lanes")
+    L, n = _acc_lanes("ec_madd", acc)
+    _check_rows("ec_madd", rows, n, 2 * L)
+    _check_mask("ec_madd", valid, "valid", n)
     if n:
-        with _on(acc[0].device):
-            _launch("ec_madd", *(c.data_ptr() for c in acc), rows.data_ptr(),
-                    valid.data_ptr(), n, ctypes.addressof(consts), _stream())
+        _launch("ec_madd", L, consts, acc[0].device, *(c.data_ptr() for c in acc),
+                rows.data_ptr(), valid.data_ptr(), n)
+    return acc
+
+
+def ec_wave_add(acc, rows, neg, valid, consts):
+    """Masked complete projective G1 add with per-lane negation, IN PLACE on
+    the three contiguous (L, *batch) accumulator tensors:
+    acc <- valid ? acc + (neg ? -pt : pt) : acc.  rows: (n, 3L) int32, row i =
+    [x | y | z limbs] of lane i's point; neg, valid: (n,) bool.  Returns acc."""
+    L, n = _acc_lanes("ec_wave_add", acc)
+    _check_rows("ec_wave_add", rows, n, 3 * L)
+    _check_mask("ec_wave_add", neg, "neg", n)
+    _check_mask("ec_wave_add", valid, "valid", n)
+    if n:
+        _launch("ec_wave_add", L, consts, acc[0].device, *(c.data_ptr() for c in acc),
+                rows.data_ptr(), neg.data_ptr(), valid.data_ptr(), n)
     return acc

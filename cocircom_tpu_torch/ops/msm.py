@@ -20,10 +20,13 @@ kernel `ec_madd`.  The incomplete formula is made safe by starting every
 bucket lane at D = salt*G with the salt drawn from OS entropy per engine;
 the known multiple of D is subtracted after Horner, so results do not
 depend on the salt.  G2 takes the complete-add path (`CurveOps.add` plus a
-select).  The wave loop is a Python loop; the number of waves is read from
-the device once per chunk.  Inputs above 2^CHUNK_LOG points run as chunked
-prepares and waves into ONE shared accumulator; reduction and Horner run
-once at the end.
+select).  `_msm_fused`, the form every shard of the device-sharded engines
+runs (parallel/sharded.py), takes the complete-add path for G1 too: identity
+accumulators, no salt and no correction term, and one CUDA kernel per wave
+(`ec_wave_add`: negate, add, select).  The wave loop is a Python loop; the
+number of waves is read from the device once per chunk.  Inputs above
+2^CHUNK_LOG points run as chunked prepares and waves into ONE shared
+accumulator; reduction and Horner run once at the end.
 
 Share-local over public points, so the same engine serves Plain and REP3.
 """
@@ -36,7 +39,7 @@ import threading
 
 import torch
 
-from .curve import CurveOps, FqLane, ProjPoint, ec_madd, leaves, pmap
+from .curve import CurveOps, FqLane, ProjPoint, ec_madd, ec_wave_add, leaves, pmap
 
 
 def _signed_digits(scalar_limbs, nbits: int, c: int):
@@ -201,7 +204,9 @@ class MSM:
 
     def _wave_step(self, pts_em, digits, order, sortedb, bucket_start, w, acc):
         """Wave w of the complete-add path: add ranks [w*T, w*T+T) of every
-        bucket's run into the (nw, K+1, T) accumulator."""
+        bucket's run into the (nw, K+1, T) accumulator.  Lanes past their
+        run's end, bucket 0 and the top row's dead lanes read a clamped,
+        arbitrary row; `valid` keeps it out of the accumulator."""
         ops = self.ops
         ln = ops.lane
         T = self.T
@@ -219,11 +224,14 @@ class MSM:
         valid = (pos < n) & (sb == bidx) & (bidx > 0)
         src = order.reshape(-1)[safe]
         rows = pts_em.index_select(0, src)  # (nw*Kp1*T, n_leaves*L)
+        dsel = digits.reshape(-1)[src + woff.expand(nw, Kp1, T).reshape(-1)] < 0
+        if isinstance(ln, FqLane):
+            # G1: negation, add and select in one pass over the gathered rows
+            return ec_wave_add(ops, acc, rows, dsel, valid.reshape(-1))
         coords = rows.t().reshape(n_leaves, L, nw, Kp1, T)
         third = n_leaves // 3
         g = ProjPoint(*(ln.from_leaves([coords[k * third + i] for i in range(third)])
                         for k in range(3)))
-        dsel = digits.reshape(-1)[src + woff.expand(nw, Kp1, T).reshape(-1)] < 0
         dsel = dsel.reshape(nw, Kp1, T)
         ptsel = ProjPoint(g.x, ln.select(dsel, ln.neg(g.y), g.y), g.z)
         added = ops.add(acc, ptsel)
@@ -370,17 +378,35 @@ class MSM:
             return self.ops.identity((k,))
         nbits = nbits or self.scalar_bits or 32 * scalars[0].shape[0]
         c = self._window_c(min(n, 1 << self.CHUNK_LOG))
-        _, nb, S = _top_window_packing(nbits, c)
-        self.last_waves = 0
-        accs = [self._accumulate(points, s, nbits, c) for s in scalars]
-        acc = pmap(lambda *cs: torch.stack(cs, dim=-1), *accs)
-        wsums = self._reduce(acc, nb, S)
-        res = self._horner(wsums, c)
+        res = self._msm_windows(points, scalars, nbits, c, self.use_madd)
         if self.use_madd:
             res = self.ops.add(res, self.ops.neg(self._madd_correction(nbits, c)))
         return res
 
-    def _accumulate(self, points: ProjPoint, scalar_limbs, nbits: int, c: int) -> ProjPoint:
+    def _msm_fused(self, points: ProjPoint, scalar_limbs, nbits: int, c: int) -> ProjPoint:
+        """One MSM on the complete-add path with window width c, whatever
+        the group: identity accumulators, the wave loop (`ec_wave_add` for
+        G1), bucket reduction, Horner.  What a shard of the device-sharded
+        engines runs; c comes from the shard's own point count."""
+        res = self._msm_fused_many(points, [scalar_limbs], nbits, c)
+        return pmap(lambda a: a[..., 0], res)
+
+    def _msm_fused_many(self, points: ProjPoint, scalars: list, nbits: int, c: int) -> ProjPoint:
+        """`_msm_fused` for k scalar vectors over the same points; batch (k,)."""
+        return self._msm_windows(points, scalars, nbits, c, madd=False)
+
+    def _msm_windows(self, points, scalars, nbits: int, c: int, madd: bool) -> ProjPoint:
+        """Waves per scalar vector, then one bucket reduction and one Horner
+        over a trailing axis of len(scalars).  On the mixed-add path the
+        result still carries the bucket-init points (see `msm_many`)."""
+        _, nb, S = _top_window_packing(nbits, c)
+        self.last_waves = 0
+        accs = [self._accumulate(points, s, nbits, c, madd) for s in scalars]
+        acc = pmap(lambda *cs: torch.stack(cs, dim=-1), *accs)
+        return self._horner(self._reduce(acc, nb, S), c)
+
+    def _accumulate(self, points: ProjPoint, scalar_limbs, nbits: int, c: int,
+                    madd: bool) -> ProjPoint:
         """All waves of one scalar vector: the (nw, K+1, T) bucket
         accumulators in homogeneous coordinates."""
         n = scalar_limbs.shape[1]
@@ -390,7 +416,7 @@ class MSM:
         T = self.T
         ln = self.ops.lane
         shape = (nw, K + 1, T)
-        if self.use_madd:
+        if madd:
             Dx, Dy = self._init_affine()
             acc = ProjPoint(
                 ln.broadcast_to(Dx[:, None, None, None], shape).contiguous(),
@@ -403,7 +429,7 @@ class MSM:
             hi = min(lo + chunk, n)
             pts = pmap(lambda a: a[..., lo:hi], points)
             sl = scalar_limbs[:, lo:hi]
-            if self.use_madd:
+            if madd:
                 scatter_idx, astart, aend, n_waves = self._prepare_madd(sl, nbits, c)
                 tableT = self._table_blocks(self._affine_em(pts), scatter_idx)
                 M_tab = (-(-(hi - lo) // T) + K + 1) * T
@@ -418,7 +444,7 @@ class MSM:
                     acc = self._wave_step(pts_em, digits, order, sortedb,
                                           bucket_start, w, acc)
             self.last_waves += n_super
-        return self._jac_to_homog(acc) if self.use_madd else acc
+        return self._jac_to_homog(acc) if madd else acc
 
 
 @functools.lru_cache(maxsize=None)

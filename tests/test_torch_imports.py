@@ -1,6 +1,7 @@
 """The port stands alone: it imports torch, never jax, and nothing of the
 JAX package; it defaults to the card and refuses to fall back."""
 
+import ast
 import ctypes
 import subprocess
 import sys
@@ -24,6 +25,8 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "cocircom_tpu" or m.startswith("cocircom_tpu."))
 assert len(names) >= 20, names
+assert "cocircom_tpu_torch.parallel.sharded" in names and \
+    "cocircom_tpu_torch.graft_entry" in names, names
 print("MODULES", len(names))
 print("BAD", bad)
 """
@@ -68,6 +71,24 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         convert.rep3_share_from_reference((limbs16, limbs16))
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.zkey_from_reference(None)
+    # the sharded path's entry points
+    from cocircom_tpu_torch import graft_entry
+    from cocircom_tpu_torch.fields.params import BLS12_381
+    from cocircom_tpu_torch.parallel import sharded
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        graft_entry.entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        graft_entry.dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sharded.device_list(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sharded.prover_core_step(BN254, ["cuda", "cuda"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PlainDriver(BLS12_381)
+    cpu = torch.device("cpu")
+    assert sharded.device_list(3, "cpu") == [cpu] * 3
+    assert PlainDriver(BN254, devices=["cpu", "cpu"]).devices == (cpu, cpu)
     assert ChaChaStream(5, device="cpu").key.device.type == "cpu"
     assert get_field(BN254.fr.p, "bn254.fr", device="cpu").device.type == "cpu"
 
@@ -85,7 +106,12 @@ def test_kernel_loader_raises_without_a_card_instead_of_falling_back():
         kernels.mont_mul(a, a, consts)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.ec_add((a, a, a), (a, a, a), consts)
-    assert kernels.launch_counts() == {k: 0 for k in kernels.KERNELS}
+    a12 = torch.zeros((12, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.ec_wave_add((a12, a12, a12), a12, a12, a12, consts)
+    assert kernels.launch_counts() == {k: 0 for k in kernels.COUNT_KEYS}
+    assert len(kernels.COUNT_KEYS) == 2 * len(kernels.KERNELS)
+    assert "ec_wave_add" in kernels.COUNT_KEYS and "ec_wave_add_l12" in kernels.COUNT_KEYS
 
 
 def test_chip_smoke_exits_nonzero_without_a_card():
@@ -104,4 +130,40 @@ def test_kernel_sources_are_in_the_tree():
         src = (kernels.CSRC / f"{kernels._ENTRY_SOURCE.get(k, k)}.cu").read_text()
         assert f"cc_{k}(" in src and "__global__" in src
         assert k in kernels._ARGTYPES
-    assert (kernels.CSRC / "field.cuh").exists()
+        # one template, an instantiation for each limb count
+        assert "template <int L>" in src and "<8>(" in src and "<12>(" in src
+    assert (kernels.CSRC / "field.cuh").exists() and (kernels.CSRC / "curve.cuh").exists()
+
+
+def _pallas_entry_points(path: Path) -> set:
+    """The public functions of a JAX-package module from which a call of
+    `pl.pallas_call` can be reached (through the module's own functions)."""
+    tree = ast.parse(path.read_text())
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    calls = {name: {n.id for n in ast.walk(fn) if isinstance(n, ast.Name)} & set(funcs)
+             for name, fn in funcs.items()}
+    reach = {name for name, fn in funcs.items()
+             if any(isinstance(n, ast.Attribute) and n.attr == "pallas_call"
+                    for n in ast.walk(fn))}
+    assert reach, path
+    grew = True
+    while grew:
+        more = {name for name in funcs if name not in reach and calls[name] & reach}
+        grew = bool(more)
+        reach |= more
+    return {f"{path.stem}.{name}" for name in reach if not name.startswith("_")}
+
+
+def test_every_tpu_kernel_has_a_counterpart():
+    """Every function of cocircom_tpu/ops/pallas_*.py that reaches
+    `pl.pallas_call` is named by `kernels.REPLACES`, and every kernel the
+    port names has its source, entry point and launch counts."""
+    from cocircom_tpu_torch.ops import kernels
+
+    tpu = set()
+    for path in sorted((ROOT / "cocircom_tpu" / "ops").glob("pallas_*.py")):
+        tpu |= _pallas_entry_points(path)
+    assert len(tpu) == 6, tpu
+    assert set(kernels.REPLACES) == set(kernels.KERNELS)
+    ported = {v for v in kernels.REPLACES.values() if v is not None}
+    assert ported == tpu, (sorted(tpu - ported), sorted(ported - tpu))
