@@ -13,21 +13,24 @@ Phases (each prints one JSON line; any failure exits non-zero):
   kernels        each kernel against its plain PyTorch version on the card at
                  the shapes the prover gives it, bit for bit (tolerance 0),
                  plus edge inputs; times for kernel and plain version; the
-                 least time the card could take (bound).  Once over BN254 (8
-                 limbs) and once over BLS12-381 (the 12-limb builds over Fq,
-                 and the 8-limb NTT kernels with BLS12-381 Fr's constants)
+                 least time the card could take (bound); the G1 and G2 adds
+                 also at one and two lanes (Horner, the endgame).  Once over
+                 BN254 (8 limbs) and once over BLS12-381 (the 12-limb builds
+                 over Fq, and the 8-limb NTT kernels with BLS12-381 Fr's
+                 constants)
   prove_small    hand-built R1CS -> groth16_setup -> zkey bytes -> loader ->
                  3-party REP3 proof on the card -> pairing verifier accepts,
                  the three proofs are equal, a changed public input is refused
   prove_full     synthetic zkey at 2^20 constraints built on the card, 3-party
-                 REP3 proof cold and warm; proofs equal and on curve; NTT
-                 round trips; one G1 and one G2 MSM against a host-computed
-                 known discrete log
+                 REP3 proof cold and warm; proofs equal and on curve; the G2
+                 waves went through `ec_wave_add_g2`; NTT round trips; one G1
+                 and one G2 MSM against a host-computed known discrete log
   prove_sharded  the same zkey and shares, each party's driver built with
                  `devices` = every visible card (the one card twice when
                  there is one), so every prover MSM and (i)NTT goes through
                  the device-sharded engines and the G1 waves through
-                 `ec_wave_add`; proofs equal and on curve; one sharded G1 and
+                 `ec_wave_add`, the G2 waves through `ec_wave_add_g2`;
+                 proofs equal and on curve; one sharded G1 and
                  G2 MSM equal to the local engine's and to the known discrete
                  log; a sharded 2^20 NTT and iNTT equal to the local
                  engine's bit for bit
@@ -46,9 +49,10 @@ the last line
 Options (for shorter measurement runs):
   --phases a,b,..   run only these phases (the final ok line is printed only
                     after a full run).  One more phase runs only when named
-                    here: `profile`, a warm prove_full-sized proof under
-                    torch.profiler, which prints the card's busy share of the
-                    wall time and the device time by kernel
+                    here: `profile`, a warm prove_full-sized proof with
+                    one-device drivers and one with sharded drivers under
+                    torch.profiler, which prints for each the card's busy
+                    share of the wall time and the device time by kernel
   --full-log N      size of prove_full and prove_sharded (default 20; never
                     below 18)
 
@@ -63,7 +67,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import subprocess
 import sys
 import threading
@@ -218,6 +221,7 @@ def phase_kernels(curve, device) -> list:
     from cocircom_tpu_torch.ops import kernels
     from cocircom_tpu_torch.ops.curve import (ProjPoint, ec_add_g2_plain, ec_add_plain,
                                               ec_madd, ec_madd_plain, ec_wave_add,
+                                              ec_wave_add_g2, ec_wave_add_g2_plain,
                                               ec_wave_add_plain, g1_ops, g2_ops, leaves, pmap)
     from cocircom_tpu_torch.ops.field import get_field, mont_mul_plain
     from cocircom_tpu_torch.ops.ntt import (butterfly, butterfly_plain, ntt_columns,
@@ -246,14 +250,14 @@ def phase_kernels(curve, device) -> list:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    def record(name, source, replaces, err, ms, plain_ms, nbytes, mads, shape):
+    def record(name, source, replaces, err, ms, plain_ms, nbytes, mads, shape, **extra):
         b_ms, by = bound(nbytes, mads)
         out.append({
             "name": kernels.count_key(name, L), "route": "cuda",
             "source": f"cocircom_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None, "shape": shape,
+            "library_ms": None, "shape": shape, **extra,
         })
 
     def max_err(a, b) -> int:
@@ -359,10 +363,18 @@ def phase_kernels(curve, device) -> list:
     check(err == 0, f"ec_add (L={L}) disagrees with ec_add_plain (max abs err {err})")
     dec = g1.decode_points(ProjPoint(*(c[:, 40:56] for c in got)))
     check(all(d is None for d in dec[8:]), "ec_add: P + (-P) is not the identity")
+    few = {}
+    for k in (1, 2):                     # Horner's and the endgame's lane counts
+        Pk, Qk = (ProjPoint(*(c[:, 100:100 + k].contiguous() for c in X)) for X in (P, Q))
+        gk, rk = g1.add(Pk, Qk), ec_add_plain(fq, g1._b3_mont, Pk, Qk)
+        err = max(err, max(max_err(g, r) for g, r in zip(gk, rk)))
+        few[k] = time_cuda(lambda: g1.add(Pk, Qk), 200)
+    check(err == 0, f"ec_add (L={L}) disagrees with ec_add_plain at 1-2 lanes (max abs err {err})")
     ms = time_cuda(lambda: g1.add(P, Q), 50)
     pms = timed_plain(lambda: ec_add_plain(fq, g1._b3_mont, P, Q))
     record("ec_add", "ec_add.cu", "cocircom_tpu/ops/pallas_curve.py:225", err, ms, pms,
-           9 * W * nl, 14 * mpm * nl, [L, 22, 2048])
+           9 * W * nl, 14 * mpm * nl, [L, 22, 2048], ms_1_lane=few[1], ms_2_lanes=few[2],
+           bound_ms_1_lane=bound(9 * W, 14 * mpm)[0])
 
     # ---- K5 ec_madd: (L, 22, 2049, 8) lanes: one wave of a c = 12 MSM ----
     wave = (22, 2049, 8)
@@ -467,11 +479,73 @@ def phase_kernels(curve, device) -> list:
     check(err == 0, f"ec_add_g2 (L={L}) disagrees with ec_add_g2_plain (max abs err {err})")
     dec = g2.decode_points(ProjPoint(*((c[0][:, 48:56], c[1][:, 48:56]) for c in got)))
     check(all(d is None for d in dec), "ec_add_g2: P + (-P) is not the identity")
+    few = {}
+    for k in (1, 2):
+        Pk, Qk = (pmap(lambda c: c[:, 100:100 + k].contiguous(), X) for X in (P2, Q2))
+        gk, rk = g2.add(Pk, Qk), ec_add_g2_plain(g2, Pk, Qk)
+        err = max(err, max(max_err(g, r) for g, r in zip(leaves(gk), leaves(rk))))
+        few[k] = time_cuda(lambda: g2.add(Pk, Qk), 200)
+    check(err == 0, f"ec_add_g2 (L={L}) disagrees with ec_add_g2_plain at 1-2 lanes")
     ms = time_cuda(lambda: g2.add(P2, Q2), 20)
     pms = timed_plain(lambda: g2_plain(P2, Q2))
-    record("ec_add_g2", "ec_add.cu", "cocircom_tpu/ops/curve.py:223", err, ms, pms,
-           18 * W * nl, 42 * mpm * nl, [L, *wave])
+    record("ec_add_g2", "ec_add_g2.cu", "cocircom_tpu/ops/curve.py:223", err, ms, pms,
+           18 * W * nl, 42 * mpm * nl, [L, *wave], ms_1_lane=few[1], ms_2_lanes=few[2],
+           bound_ms_1_lane=bound(18 * W, 42 * mpm)[0])
+
+    # ---- ec_wave_add_g2: (L, 22, 2049, 8) lanes over Fq2: one G2 wave of a
+    # c = 12 MSM, 80% valid, half negated; accumulators and points projective
+    # with generic z, edge lanes as for K6 ----
+    proj2 = g2.add(P2, pmap(lambda c: c.roll(3, dims=1), P2))          # z != 1
     del P2, Q2, got, ref
+    acc0 = pmap(lambda c: c.roll(11, dims=1).contiguous(), proj2)
+    rows6 = torch.cat(leaves(proj2), dim=0).t().contiguous()           # (nl, 6L)
+    valid = torch.rand(nl, generator=gen).to(device) < 0.8
+    neg = torch.rand(nl, generator=gen).to(device) < 0.5
+    acc_rows = torch.cat(leaves(acc0), dim=0).t()
+    for c, i in zip(leaves(acc0), leaves(ident2)):
+        c[:, :16] = i                                                  # identity accumulator
+    rows6[16:32] = torch.cat(leaves(ident2), dim=0).t()                # identity point
+    rows6[32:64] = acc_rows[32:64]                                     # doubling, inverse point
+    neg[32:48], neg[48:64] = False, True
+    valid[:64], neg[:16] = True, False
+    rows6[64:80] = 0                                                   # masked, all-zero rows
+    valid[64:80], neg[64:80] = False, True
+    valid[96:160] = False                                              # masked whole warps
+    acc0 = pmap(lambda c: c.reshape((L,) + wave).contiguous(), acc0)
+
+    def wave_plain(acc_in):
+        """ec_wave_add_g2_plain slice by slice (lanes are independent)."""
+        flat = pmap(lambda c: c.reshape(L, -1), acc_in)
+        parts = [ec_wave_add_g2_plain(g2, pmap(lambda c: c[:, lo:lo + piece], flat),
+                                      rows6[lo:lo + piece], neg[lo:lo + piece],
+                                      valid[lo:lo + piece])
+                 for lo in range(0, nl, piece)]
+        return pmap(lambda *cs: torch.cat(cs, dim=1).reshape((L,) + wave), *parts)
+
+    ref = wave_plain(acc0)
+    acc = pmap(lambda c: c.clone(), acc0)
+    got = ec_wave_add_g2(g2, acc, rows6, neg, valid)
+    err = max(max_err(g, r) for g, r in zip(leaves(got), leaves(ref)))
+    check(err == 0, f"ec_wave_add_g2 (L={L}) disagrees with ec_wave_add_g2_plain "
+          f"(max abs err {err})")
+    check(all(torch.equal(g.reshape(L, -1)[:, ~valid], a.reshape(L, -1)[:, ~valid])
+              for g, a in zip(leaves(got), leaves(acc0))), "ec_wave_add_g2: a masked lane changed")
+    flat = pmap(lambda c: c.reshape(L, -1)[:, :64], got)
+    dec = g2.decode_points(flat)
+    check(dec[:16] == g2.decode_points(pmap(lambda c: c[:, :16], proj2)),
+          "ec_wave_add_g2: identity + P is not P")
+    check(dec[16:32] == g2.decode_points(pmap(lambda c: c.reshape(L, -1)[:, 16:32], acc0)),
+          "ec_wave_add_g2: P + identity is not P")
+    dbl = g2.decode_points(g2.double(pmap(lambda c: c.reshape(L, -1)[:, 32:48].contiguous(),
+                                          acc0)))
+    check(dec[32:48] == dbl, "ec_wave_add_g2: P + P is not 2P")
+    check(all(d is None for d in dec[48:64]), "ec_wave_add_g2: P + (-P) is not the identity")
+    n_valid = int(valid.sum().item())
+    ms = time_cuda(lambda: ec_wave_add_g2(g2, acc, rows6, neg, valid), 20)
+    pms = timed_plain(lambda: wave_plain(acc0))
+    record("ec_wave_add_g2", "ec_wave_add_g2.cu", "cocircom_tpu/ops/msm.py:350", err, ms, pms,
+           nl + (1 + 18 * W) * n_valid, 42 * mpm * n_valid, [L, *wave])
+    del proj2, acc0, acc, rows6, got, ref
 
     emit({"phase": "kernels", "curve": curve.name, "limbs": L,
           "kernels": [k["name"] for k in out], "tolerance": 0,
@@ -633,6 +707,7 @@ def phase_prove_full(curve, device, log_n: int, inputs) -> dict:
     check(proofs_w[0] == proofs_w[1] == proofs_w[2], "prove_full: warm proofs differ")
     check(on_curve(curve, proofs[0]) and on_curve(curve, proofs_w[0]),
           "prove_full: a proof point is not on its curve")
+    check(counts_cold["ec_wave_add_g2"] > 0, "prove_full: ec_wave_add_g2 was never launched")
 
     # NTT round trip at the size the witness map uses
     d = PlainDriver(curve, device=device)
@@ -698,6 +773,7 @@ def phase_prove_sharded(curve, device, log_n: int, inputs) -> dict:
     check(proofs[0] == proofs[1] == proofs[2], "prove_sharded: the parties' proofs differ")
     check(on_curve(curve, proofs[0]), "prove_sharded: a proof point is not on its curve")
     check(counts["ec_wave_add"] > 0, "prove_sharded: ec_wave_add was never launched")
+    check(counts["ec_wave_add_g2"] > 0, "prove_sharded: ec_wave_add_g2 was never launched")
 
     local = PlainDriver(curve, device=device)
     dist = PlainDriver(curve, devices=devices)
@@ -736,9 +812,13 @@ def phase_prove_sharded(curve, device, log_n: int, inputs) -> dict:
         if name == "g1":
             check(c["ec_madd"] == 0 and c["ec_wave_add"] == eng.last_waves > 0,
                   "prove_sharded: the sharded G1 MSM did not run its waves through ec_wave_add")
+        else:
+            check(c["ec_wave_add_g2"] == eng.last_waves > 0,
+                  "prove_sharded: the sharded G2 MSM did not run its waves through ec_wave_add_g2")
         emit({"phase": "sharded_msm_check", "group": name, "n": int(zkey.n_vars),
               "seconds": round(dt, 3), "waves": eng.last_waves,
-              "ec_wave_add": c["ec_wave_add"], "ec_madd": c["ec_madd"]})
+              "ec_wave_add": c["ec_wave_add"], "ec_wave_add_g2": c["ec_wave_add_g2"],
+              "ec_madd": c["ec_madd"]})
 
     emit({"phase": "prove_sharded", "log_n": log_n, "devices": [str(d) for d in devices],
           "constraints": zkey.matrices.num_constraints, "prove_cold_s": round(cold, 3),
@@ -767,7 +847,7 @@ def phase_prove_bls(device, n_mul: int) -> dict:
     counts = kernels.launch_counts()
     check_small_proofs("prove_bls", vk, proofs, publics)
     check_small_proofs("prove_bls (sharded)", vk, proofs_s, publics)
-    for k in ("mont_mul", "ec_add", "ec_madd", "ec_wave_add", "ec_add_g2"):
+    for k in ("mont_mul", "ec_add", "ec_madd", "ec_wave_add", "ec_add_g2", "ec_wave_add_g2"):
         check(counts[kernels.count_key(k, 12)] > 0,
               f"prove_bls: the 12-limb {k} was never launched")
     emit({"phase": "prove_bls", "curve": curve.name, "constraints": n_mul,
@@ -812,56 +892,47 @@ def phase_graft(curve, device) -> None:
 
 def phase_profile(curve, device, log_n: int, inputs) -> None:
     """One warm 3-party proof of prove_full's size under torch.profiler
-    (device activity only): the share of the wall time in which the card ran
-    a kernel, and the device time by kernel."""
+    (device activity only) with one-device drivers, and one with sharded
+    drivers (prove_sharded's path): for each the share of the wall time in
+    which the card ran a kernel, and the device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
+    from cocircom_tpu_torch.parallel.sharded import device_list
+
     zkey, _, _, shares, _ = inputs
-    prove_rep3(curve, zkey, shares, device, traced=False)      # cold, not profiled
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, wall, _ = prove_rep3(curve, zkey, shares, device, traced=False)
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            rows.append((e.key, int(e.count), us / 1e3))
-    check(rows, "profile: the profiler recorded no device time")
-    rows.sort(key=lambda r: -r[2])
-    busy_ms = sum(r[2] for r in rows)
-    emit({"phase": "profile", "log_n": log_n, "prove_warm_profiled_s": round(wall, 3),
-          "device_busy_ms": round(busy_ms, 1),
-          "device_busy_share": round(busy_ms / (wall * 1e3), 4),
-          "device_kernel_launches": sum(r[1] for r in rows),
-          "top_kernels": [{"name": k[:80], "count": c, "ms": round(ms, 1)}
-                          for k, c, ms in rows[:16]]})
+    for path, devices in (("prove_full", None),
+                          ("prove_sharded", device_list(max(2, torch.cuda.device_count())))):
+        prove_rep3(curve, zkey, shares, device, traced=False, devices=devices)   # not profiled
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, wall, _ = prove_rep3(curve, zkey, shares, device, traced=False, devices=devices)
+        rows = []
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us > 0:
+                rows.append((e.key, int(e.count), us / 1e3))
+        check(rows, "profile: the profiler recorded no device time")
+        rows.sort(key=lambda r: -r[2])
+        busy_ms = sum(r[2] for r in rows)
+        emit({"phase": "profile", "path": path, "log_n": log_n,
+              "prove_warm_profiled_s": round(wall, 3), "device_busy_ms": round(busy_ms, 1),
+              "device_busy_share": round(busy_ms / (wall * 1e3), 4),
+              "device_kernel_launches": sum(r[1] for r in rows),
+              "top_kernels": [{"name": k[:80], "count": c, "ms": round(ms, 1)}
+                              for k, c, ms in rows[:16]]})
 
 
 # --------------------------------------------------------------------- main
 
 def ptxas_report(build_dir) -> dict:
-    """{kernel_l<limbs>: {"registers": r, "spill_store_bytes": s,
-    "spill_load_bytes": l}} for every __global__ instantiation, from the
-    `-Xptxas -v` logs the build keeps beside the libraries."""
-    entry = re.compile(r"Compiling entry function '(_Z\d+([a-z0-9_]+?)_kernelILi(\d+)E\w*)'")
-    spill = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+    """Registers, stack and spill bytes of every __global__ instantiation,
+    from the `-Xptxas -v` logs the build keeps beside the libraries."""
+    from cocircom_tpu_torch.ops import kernels
+
     out = {}
     for log in sorted(build_dir.glob("lib*.log")):
-        cur = mangled = props = None
-        for line in log.read_text().splitlines():
-            m = entry.search(line)
-            if m:
-                mangled, cur = m.group(1), f"{m.group(2)}_l{m.group(3)}"
-                out[cur] = {}
-            elif "Function properties for" in line:
-                props = line.rsplit(" ", 1)[-1]
-            elif cur and props == mangled and spill.search(line):
-                m = spill.search(line)
-                out[cur].update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
-                                spill_load_bytes=int(m.group(3)))
-            elif cur and "Used" in line and "registers" in line:
-                out[cur]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+        out.update(kernels.parse_ptxas(log.read_text()))
     return out
 
 
@@ -901,6 +972,7 @@ def main() -> None:
         kernels.build_all()
         kernels.load_all()
         emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
+              "seconds_by_source": dict(kernels.build_seconds),
               "kernels": list(kernels.KERNELS), "limbs": list(kernels.LIMBS),
               "dir": str(kernels.build_dir().name), "ptxas": ptxas_report(kernels.build_dir())})
     if "device" in phases:

@@ -5,14 +5,15 @@ tensors ``(L, *batch)`` (G1) or pairs of them (G2 over Fq2).  Addition uses
 the *complete* a=0 formulas (Renes-Costello-Batina 2016, Alg. 7), valid for
 ALL inputs (identity, doubling, inverses).  Identity is (0 : 1 : 0).
 
-`add` on CUDA tensors is ONE hand-written kernel (csrc/ec_add.cu, with an
-instantiation for G1 over Fq and one for G2 over Fq2).  The plain versions
-are taken only for CPU tensors: `ec_add_plain` for G1 and `ec_add_g2_plain`
-for G2, the three-wave stacked-multiply composition over `mont_mul_plain`
-and the plain add and subtract.  The MSM's two wave updates live here too:
-the mixed add (csrc/ec_madd.cu, plain version `ec_madd_plain`) and the
-masked complete add with per-lane negation (csrc/ec_wave_add.cu, plain
-version `ec_wave_add_plain`).
+`add` on CUDA tensors is ONE hand-written kernel (csrc/ec_add.cu `ec_add`
+for G1 over Fq, csrc/ec_add_g2.cu `ec_add_g2` for G2 over Fq2).  The plain versions are taken
+only for CPU tensors: `ec_add_plain` for G1 and `ec_add_g2_plain` for G2,
+the three-wave stacked-multiply composition over `mont_mul_plain` and the
+plain add and subtract.  The MSM's wave updates live here too: the mixed
+add (csrc/ec_madd.cu, plain version `ec_madd_plain`) and the masked complete
+add with per-lane negation, for G1 (csrc/ec_wave_add.cu, plain version
+`ec_wave_add_plain`) and for G2 (csrc/ec_wave_add_g2.cu, plain version
+`ec_wave_add_g2_plain`).
 """
 
 from __future__ import annotations
@@ -115,9 +116,6 @@ class FqLane:
 
     def index(self, a, idx, axis=1):
         return a.select(axis, idx)
-
-    def from_leaves(self, ts):
-        return ts[0]
 
 
 class Fq2Lane:
@@ -227,9 +225,6 @@ class Fq2Lane:
 
     def index(self, a, idx, axis=1):
         return (a[0].select(axis, idx), a[1].select(axis, idx))
-
-    def from_leaves(self, ts):
-        return (ts[0], ts[1])
 
 
 class _PlainFq2Lane(Fq2Lane):
@@ -354,6 +349,23 @@ def ec_add_g2_plain(ops: "CurveOps", p: ProjPoint, q: ProjPoint) -> ProjPoint:
     return ProjPoint(X3, ix(yz, 0), ix(yz, 1))
 
 
+def ec_wave_add_g2_plain(ops: "CurveOps", acc: ProjPoint, rows, neg, valid) -> ProjPoint:
+    """acc <- valid ? acc + (neg ? -pt : pt) : acc over G2 in plain torch: the
+    same function as the CUDA kernel `ec_wave_add_g2`, either device, out of
+    place.  acc: coordinates are (c0, c1) pairs of (L, *batch) tensors; rows
+    (n, 6L): row i = [x0 | x1 | y0 | y1 | z0 | z1 limbs] of lane i's point
+    (the leaf order of the element-major point table); neg, valid (n,) bool.
+    Negate, `ec_add_g2_plain`, select."""
+    ln = ops.lane
+    L = ln.f.L
+    batch = ln.batch_shape(acc.x)
+    t = rows.t()
+    c = [t[k * L:(k + 1) * L].reshape((L,) + batch) for k in range(6)]
+    y = ln.select(neg.reshape(batch), ln.neg((c[2], c[3])), (c[2], c[3]))
+    added = ec_add_g2_plain(ops, acc, ProjPoint((c[0], c[1]), y, (c[4], c[5])))
+    return ops.select(valid.reshape(batch), added, acc)
+
+
 def ec_madd(f: Field, acc: ProjPoint, rows, valid) -> ProjPoint:
     """The MSM wave update.  On CUDA tensors the kernel updates `acc` IN
     PLACE (the caller owns it) and the same tensors are returned."""
@@ -371,6 +383,16 @@ def ec_wave_add(ops: "CurveOps", acc: ProjPoint, rows, neg, valid) -> ProjPoint:
         kernels.ec_wave_add(tuple(acc), rows, neg, valid, ops._kconsts)
         return acc
     return ec_wave_add_plain(ops.lane.f, ops._b3_mont, acc, rows, neg, valid)
+
+
+def ec_wave_add_g2(ops: "CurveOps", acc: ProjPoint, rows, neg, valid) -> ProjPoint:
+    """The wave update of the complete-add MSM path over G2.  On CUDA
+    tensors the kernel updates the six coordinate tensors of `acc` IN PLACE
+    (the caller owns them) and the same point is returned."""
+    if acc.x[0].is_cuda:
+        kernels.ec_wave_add_g2(leaves(acc), rows, neg, valid, ops._kconsts)
+        return acc
+    return ec_wave_add_g2_plain(ops, acc, rows, neg, valid)
 
 
 class CurveOps:

@@ -26,20 +26,22 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
 
-# one .cu (and one shared library) per source; every counted entry point
-SOURCES = ("mont_mul", "ntt_butterfly", "ntt_columns", "ec_add", "ec_madd", "ec_wave_add")
-KERNELS = SOURCES + ("ec_add_g2",)
-_ENTRY_SOURCE = {"ec_add_g2": "ec_add"}  # entry points that share a source
+# every counted entry point; one .cu (and one shared library) each
+KERNELS = ("mont_mul", "ntt_butterfly", "ntt_columns", "ec_add", "ec_madd", "ec_wave_add",
+           "ec_add_g2", "ec_wave_add_g2")
 LIMBS = (8, 12)  # 32-bit limbs per element the kernels are instantiated for
 # The function of the JAX package (cocircom_tpu/ops/pallas_*.py) that each
-# kernel takes the place of; the G2 add replaces an XLA composition.
+# kernel takes the place of; the G2 add and the G2 wave replace XLA
+# compositions.
 REPLACES = {
     "mont_mul": "pallas_field.mont_mul_pallas",
     "ntt_butterfly": "pallas_field.butterfly_pallas",
@@ -48,6 +50,7 @@ REPLACES = {
     "ec_madd": "pallas_curve.ec_madd_pallas",
     "ec_wave_add": "pallas_curve.ec_wave_add_pallas",
     "ec_add_g2": None,
+    "ec_wave_add_g2": None,
 }
 
 
@@ -136,33 +139,74 @@ def build_dir() -> Path:
     return BUILD_ROOT / _source_hash()
 
 
+# seconds each source's nvcc took in the last build of this process
+# ({} when everything was built already)
+build_seconds: dict = {}
+
+
 def build_all() -> Path:
     """Compile every kernel that is not built yet (one nvcc each, started
     together) and return the build directory.  Raises on any failure."""
     out = build_dir()
     with _lock:
         out.mkdir(parents=True, exist_ok=True)
-        todo = [k for k in SOURCES if not (out / f"lib{k}.so").exists()]
+        todo = [k for k in KERNELS if not (out / f"lib{k}.so").exists()]
         if not todo:
             return out
         nvcc = _nvcc()
-        procs = []
+        procs = {}
+        t0 = time.perf_counter()
         for k in todo:
             tmp = out / f"lib{k}.so.tmp{os.getpid()}"
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   str(CSRC / f"{k}.cu")]
-            procs.append((k, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            log = open(out / f"lib{k}.log.tmp{os.getpid()}", "w")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{k}.cu")]
+            procs[k] = (tmp, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
+        build_seconds.clear()
+        while len(build_seconds) < len(procs):
+            for k, (_, _, proc) in procs.items():
+                if k not in build_seconds and proc.poll() is not None:
+                    build_seconds[k] = round(time.perf_counter() - t0, 2)
+            time.sleep(0.05)
         failed = []
-        for k, tmp, proc in procs:
-            log, _ = proc.communicate()
+        for k, (tmp, log, proc) in procs.items():
+            log.close()
+            log_path = Path(log.name)
             if proc.returncode != 0:
-                failed.append(f"{k}: nvcc exit {proc.returncode}\n{log}")
+                failed.append(f"{k}: nvcc exit {proc.returncode}\n{log_path.read_text()}")
                 continue
-            (out / f"lib{k}.log").write_text(log)
+            os.replace(log_path, out / f"lib{k}.log")
             os.replace(tmp, out / f"lib{k}.so")
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+_ENTRY = re.compile(
+    r"Compiling entry function '(_Z\d+([a-z0-9_]+?)_kernelILi(\d+)E(?:Li(\d+)E)?\w*)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def parse_ptxas(log: str) -> dict:
+    """What `nvcc -Xptxas -v` printed, by kernel instantiation:
+    {"<kernel>_l<limbs>[_s<team>]": {"registers", "stack_bytes",
+    "spill_store_bytes", "spill_load_bytes"}} (the second template argument
+    of K4's kernel is its team size)."""
+    out, cur, mangled, props = {}, None, None, None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            mangled, cur = m.group(1), f"{m.group(2)}_l{m.group(3)}"
+            if m.group(4):
+                cur += f"_s{m.group(4)}"
+            out[cur] = {}
+        elif "Function properties for" in line:
+            props = line.rsplit(" ", 1)[-1]
+        elif cur and props == mangled and _FRAME.search(line):
+            f = _FRAME.search(line)
+            out[cur].update(stack_bytes=int(f.group(1)), spill_store_bytes=int(f.group(2)),
+                            spill_load_bytes=int(f.group(3)))
+        elif cur and "Used" in line and "registers" in line:
+            out[cur]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
     return out
 
 
@@ -184,6 +228,8 @@ _ARGTYPES = {
     "ec_wave_add": [_VP] * 6 + [_LL] + _TAIL,
     # in[12], out[6] (host arrays of device pointers), n, p_bcast, q_bcast
     "ec_add_g2": [_VP, _VP, _LL, _I, _I] + _TAIL,
+    # acc[6] (host array of device pointers, updated in place), rows, neg, valid, n
+    "ec_wave_add_g2": [_VP] * 4 + [_LL] + _TAIL,
 }
 
 
@@ -194,7 +240,7 @@ def _lib(name: str):
             raise RuntimeError(
                 f"CUDA kernel {name!r} needs a card: none is available and "
                 "there is no fallback (CPU tensors take the plain version)")
-        path = build_all() / f"lib{_ENTRY_SOURCE.get(name, name)}.so"
+        path = build_all() / f"lib{name}.so"
         with _lock:
             lib = _libs.get(name)
             if lib is None:
@@ -382,28 +428,32 @@ def ec_add_g2(p, q, consts):
     return ((outs[0], outs[1]), (outs[2], outs[3]), (outs[4], outs[5]))
 
 
-def _acc_lanes(name: str, acc) -> tuple:
-    """(limb count, lanes) of an accumulator that a kernel updates in place."""
-    limbs = []
+def _wave_lanes(name: str, acc, coords: int, rows, row_coords: int, masks: dict) -> tuple:
+    """(limb count, lanes) of a wave kernel's operands: `coords` contiguous
+    int32 (L, *batch) accumulator tensors that it updates in place, rows of
+    `row_coords` L words a lane, and (n,) bool masks.  Shapes first, so that
+    a wrong one is named as such wherever the tensors lie; then the card."""
+    if len(acc) != coords:
+        raise ValueError(f"{name}: acc must be {coords} coordinate tensors")
+    a0 = acc[0]
+    if a0.dim() < 1 or a0.shape[0] not in LIMBS:
+        raise ValueError(f"{name}: acc must have {LIMBS[0]} or {LIMBS[1]} limbs on axis 0")
     for c in acc:
-        limbs.append(_check(name, c, "acc coordinate"))
-        if not c.is_contiguous() or c.shape != acc[0].shape:
-            raise ValueError(f"{name}: acc coordinates must be contiguous and alike")
-    L = _same_limbs(name, limbs)
-    return L, acc[0].numel() // L
-
-
-def _check_rows(name: str, rows, n: int, width: int) -> None:
-    if not rows.is_cuda or rows.dtype != torch.int32 or not rows.is_contiguous() \
-            or tuple(rows.shape) != (n, width) or rows.data_ptr() % 16:
-        raise ValueError(f"{name}: rows must be a contiguous, 16-byte aligned CUDA int32 "
-                         f"({n}, {width}) tensor")
-
-
-def _check_mask(name: str, mask, what: str, n: int) -> None:
-    if not mask.is_cuda or mask.dtype != torch.bool or mask.numel() != n \
-            or not mask.is_contiguous():
-        raise ValueError(f"{name}: {what} must be a contiguous CUDA bool tensor of {n} lanes")
+        if c.dtype != torch.int32 or not c.is_contiguous() or c.shape != a0.shape:
+            raise ValueError(f"{name}: acc coordinates must be contiguous int32 tensors and alike")
+    L = a0.shape[0]
+    n = a0.numel() // L
+    if rows.dtype != torch.int32 or not rows.is_contiguous() \
+            or tuple(rows.shape) != (n, row_coords * L) or rows.data_ptr() % 16:
+        raise ValueError(f"{name}: rows must be a contiguous, 16-byte aligned int32 "
+                         f"({n}, {row_coords * L}) tensor")
+    for what, mask in masks.items():
+        if mask.dtype != torch.bool or mask.numel() != n or not mask.is_contiguous():
+            raise ValueError(f"{name}: {what} must be a contiguous bool tensor of {n} lanes")
+    for t in (*acc, rows, *masks.values()):
+        if not t.is_cuda:
+            raise ValueError(f"{name}: every operand must be a CUDA tensor")
+    return L, n
 
 
 def ec_madd(acc, rows, valid, consts):
@@ -411,9 +461,7 @@ def ec_madd(acc, rows, valid, consts):
     accumulator tensors.  rows: (n, 2L) int32, row i = [x limbs | y limbs] of
     lane i's affine point ((0, 0) = identity: lane unchanged); valid: (n,)
     bool, False = lane unchanged.  Returns acc."""
-    L, n = _acc_lanes("ec_madd", acc)
-    _check_rows("ec_madd", rows, n, 2 * L)
-    _check_mask("ec_madd", valid, "valid", n)
+    L, n = _wave_lanes("ec_madd", acc, 3, rows, 2, {"valid": valid})
     if n:
         _launch("ec_madd", L, consts, acc[0].device, *(c.data_ptr() for c in acc),
                 rows.data_ptr(), valid.data_ptr(), n)
@@ -425,11 +473,21 @@ def ec_wave_add(acc, rows, neg, valid, consts):
     the three contiguous (L, *batch) accumulator tensors:
     acc <- valid ? acc + (neg ? -pt : pt) : acc.  rows: (n, 3L) int32, row i =
     [x | y | z limbs] of lane i's point; neg, valid: (n,) bool.  Returns acc."""
-    L, n = _acc_lanes("ec_wave_add", acc)
-    _check_rows("ec_wave_add", rows, n, 3 * L)
-    _check_mask("ec_wave_add", neg, "neg", n)
-    _check_mask("ec_wave_add", valid, "valid", n)
+    L, n = _wave_lanes("ec_wave_add", acc, 3, rows, 3, {"neg": neg, "valid": valid})
     if n:
         _launch("ec_wave_add", L, consts, acc[0].device, *(c.data_ptr() for c in acc),
+                rows.data_ptr(), neg.data_ptr(), valid.data_ptr(), n)
+    return acc
+
+
+def ec_wave_add_g2(acc, rows, neg, valid, consts):
+    """ec_wave_add over G2: acc is the six contiguous (L, *batch) tensors
+    (x0, x1, y0, y1, z0, z1), updated IN PLACE; rows (n, 6L) int32, row i =
+    [x0 | x1 | y0 | y1 | z0 | z1 limbs] of lane i's point; neg, valid: (n,)
+    bool.  Returns acc."""
+    L, n = _wave_lanes("ec_wave_add_g2", acc, 6, rows, 6, {"neg": neg, "valid": valid})
+    if n:
+        ptrs = (ctypes.c_void_p * 6)(*(c.data_ptr() for c in acc))
+        _launch("ec_wave_add_g2", L, consts, acc[0].device, ctypes.addressof(ptrs),
                 rows.data_ptr(), neg.data_ptr(), valid.data_ptr(), n)
     return acc

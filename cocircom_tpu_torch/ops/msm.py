@@ -19,11 +19,11 @@ to T in a permuted table) are added into Jacobian accumulators by the CUDA
 kernel `ec_madd`.  The incomplete formula is made safe by starting every
 bucket lane at D = salt*G with the salt drawn from OS entropy per engine;
 the known multiple of D is subtracted after Horner, so results do not
-depend on the salt.  G2 takes the complete-add path (`CurveOps.add` plus a
-select).  `_msm_fused`, the form every shard of the device-sharded engines
-runs (parallel/sharded.py), takes the complete-add path for G1 too: identity
-accumulators, no salt and no correction term, and one CUDA kernel per wave
-(`ec_wave_add`: negate, add, select).  The wave loop is a Python loop; the
+depend on the salt.  G2 takes the complete-add path: identity accumulators and one
+CUDA kernel per wave (`ec_wave_add_g2`: negate, add, select).
+`_msm_fused`, the form every shard of the device-sharded engines runs
+(parallel/sharded.py), takes the complete-add path for G1 too: no salt and
+no correction term, and one CUDA kernel per wave (`ec_wave_add`).  The wave loop is a Python loop; the
 number of waves is read from the device once per chunk.  Inputs above
 2^CHUNK_LOG points run as chunked prepares and waves into ONE shared
 accumulator; reduction and Horner run once at the end.
@@ -39,7 +39,8 @@ import threading
 
 import torch
 
-from .curve import CurveOps, FqLane, ProjPoint, ec_madd, ec_wave_add, leaves, pmap
+from .curve import (CurveOps, FqLane, ProjPoint, ec_madd, ec_wave_add, ec_wave_add_g2, leaves,
+                    pmap)
 
 
 def _signed_digits(scalar_limbs, nbits: int, c: int):
@@ -208,12 +209,9 @@ class MSM:
         run's end, bucket 0 and the top row's dead lanes read a clamped,
         arbitrary row; `valid` keeps it out of the accumulator."""
         ops = self.ops
-        ln = ops.lane
         T = self.T
         nw, Kp1 = bucket_start.shape
         n = sortedb.shape[1]
-        L = ln.f.L
-        n_leaves = pts_em.shape[1] // L
         dev = sortedb.device
         bidx = torch.arange(Kp1, device=dev)[None, :, None]
         ranks = torch.arange(T, device=dev)[None, None, :]
@@ -225,17 +223,9 @@ class MSM:
         src = order.reshape(-1)[safe]
         rows = pts_em.index_select(0, src)  # (nw*Kp1*T, n_leaves*L)
         dsel = digits.reshape(-1)[src + woff.expand(nw, Kp1, T).reshape(-1)] < 0
-        if isinstance(ln, FqLane):
-            # G1: negation, add and select in one pass over the gathered rows
-            return ec_wave_add(ops, acc, rows, dsel, valid.reshape(-1))
-        coords = rows.t().reshape(n_leaves, L, nw, Kp1, T)
-        third = n_leaves // 3
-        g = ProjPoint(*(ln.from_leaves([coords[k * third + i] for i in range(third)])
-                        for k in range(3)))
-        dsel = dsel.reshape(nw, Kp1, T)
-        ptsel = ProjPoint(g.x, ln.select(dsel, ln.neg(g.y), g.y), g.z)
-        added = ops.add(acc, ptsel)
-        return ops.select(valid, added, acc)
+        # negation, add and select in one pass over the gathered rows
+        wave = ec_wave_add if isinstance(ops.lane, FqLane) else ec_wave_add_g2
+        return wave(ops, acc, rows, dsel, valid.reshape(-1))
 
     # ------------------------------------------- phase 2': mixed-add waves
 

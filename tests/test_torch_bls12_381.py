@@ -6,8 +6,8 @@ proof over this curve is in test_torch_bls12_381_groth16.py.
 
 On the CPU the port runs the plain versions of the 12-limb kernels
 (`mont_mul_plain`, `ec_add_plain`, `ec_madd_plain`, `ec_wave_add_plain`,
-`ec_add_g2_plain`); the JAX side runs its XLA paths, which its own tests
-hold equal to its Pallas kernels.
+`ec_add_g2_plain`, `ec_wave_add_g2_plain`); the JAX side runs its XLA paths,
+which its own tests hold equal to its Pallas kernels.
 """
 
 import random
@@ -27,7 +27,7 @@ from cocircom_tpu.ops.ntt import ntt_engine as ref_ntt_engine
 from cocircom_tpu.pairing.tower import Tower
 from cocircom_tpu_torch import convert
 from cocircom_tpu_torch.fields.params import BLS12_381 as PBLS
-from cocircom_tpu_torch.ops.curve import ec_wave_add, g1_ops, g2_ops, pmap
+from cocircom_tpu_torch.ops.curve import ec_wave_add, ec_wave_add_g2, g1_ops, g2_ops, leaves, pmap
 from cocircom_tpu_torch.ops.field import get_field, mont_mul_plain
 from cocircom_tpu_torch.ops.msm import MSM
 from cocircom_tpu_torch.ops.ntt import ntt_engine
@@ -162,6 +162,32 @@ def test_wave_add_12_limbs_matches_reference_composition():
     want = [h1(a + b) if v else h1(a) for a, b, v in zip(ka, signed, valid)]
     assert ops.decode_points(got) == [w if k or v else None
                                       for w, k, v in zip(want, ka, valid)]
+
+
+def test_g2_wave_add_12_limbs_matches_reference_composition():
+    """The G2 wave over 12-limb Fq2 against the JAX package's G2 wave
+    (negate, add, select over its g2_ops)."""
+    rops, ops = ref_g2_ops(BLS12_381), g2_ops(PBLS, "cpu")
+    ka = [0, 9, 14, 17, 5, 8]
+    kp = [4, 0, 14, 17, 6, 2]                 # identity sides, doubling, inverse
+    neg = np.array([0, 0, 0, 1, 1, 1], bool)
+    valid = np.array([1, 1, 1, 1, 0, 1], bool)
+    racc = rops.encode_points([h2(k) if k else None for k in ka])
+    rpt = rops.encode_points([h2(k) if k else None for k in kp])
+    rpt = RefPoint(*((c[0].at[:, 4].set(0), c[1].at[:, 4].set(0)) for c in rpt))  # masked, zero row
+    ln = rops.lane
+    sel = RefPoint(rpt.x, ln.select(jnp.asarray(neg), ln.neg(rpt.y), rpt.y), rpt.z)
+    ref = rops.select(jnp.asarray(valid), rops.add(racc, sel), racc)
+
+    acc = _to_port(racc)
+    rows = torch.cat(leaves(_to_port(rpt)), dim=0).t().contiguous()
+    assert rows.shape == (6, 72)
+    got = ec_wave_add_g2(ops, acc, rows, torch.from_numpy(neg), torch.from_numpy(valid))
+    for g, r in zip(leaves(got), [t for c in ref for t in c]):
+        assert same(g, r)
+    signed = [(-k if s else k) for k, s in zip(kp, neg)]
+    assert ops.decode_points(got) == [h2(a + b) if v else h2(a) if a else None
+                                      for a, b, v in zip(ka, signed, valid)]
 
 
 def test_ntt_over_bls_fr_matches_reference():

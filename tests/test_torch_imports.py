@@ -107,11 +107,23 @@ def test_kernel_loader_raises_without_a_card_instead_of_falling_back():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.ec_add((a, a, a), (a, a, a), consts)
     a12 = torch.zeros((12, 4), dtype=torch.int32)
+    rows12 = torch.zeros((4, 72), dtype=torch.int32)
+    mask = torch.zeros(4, dtype=torch.bool)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        kernels.ec_wave_add((a12, a12, a12), a12, a12, a12, consts)
+        kernels.ec_wave_add((a12, a12, a12), torch.zeros((4, 36), dtype=torch.int32), mask, mask,
+                            consts)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.ec_wave_add_g2((a12,) * 6, rows12, mask, mask, consts)
+    with pytest.raises(ValueError, match="rows must be"):
+        kernels.ec_wave_add_g2((a12,) * 6, rows12[:, :36], mask, mask, consts)
+    with pytest.raises(ValueError, match="valid must be"):
+        kernels.ec_wave_add_g2((a12,) * 6, rows12, mask, mask[:3], consts)
     assert kernels.launch_counts() == {k: 0 for k in kernels.COUNT_KEYS}
     assert len(kernels.COUNT_KEYS) == 2 * len(kernels.KERNELS)
-    assert "ec_wave_add" in kernels.COUNT_KEYS and "ec_wave_add_l12" in kernels.COUNT_KEYS
+    for k in ("ec_wave_add", "ec_wave_add_g2"):
+        assert k in kernels.KERNELS and k in kernels.COUNT_KEYS and f"{k}_l12" in kernels.COUNT_KEYS
+    # the G2 wave replaces an XLA composition, as the G2 add does
+    assert kernels.REPLACES["ec_wave_add_g2"] is None and kernels.REPLACES["ec_add_g2"] is None
 
 
 def test_chip_smoke_exits_nonzero_without_a_card():
@@ -127,7 +139,7 @@ def test_kernel_sources_are_in_the_tree():
     from cocircom_tpu_torch.ops import kernels
 
     for k in kernels.KERNELS:
-        src = (kernels.CSRC / f"{kernels._ENTRY_SOURCE.get(k, k)}.cu").read_text()
+        src = (kernels.CSRC / f"{k}.cu").read_text()
         assert f"cc_{k}(" in src and "__global__" in src
         assert k in kernels._ARGTYPES
         # one template, an instantiation for each limb count
