@@ -14,7 +14,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  the shapes the prover gives it, bit for bit (tolerance 0),
                  plus edge inputs; times for kernel and plain version; the
                  least time the card could take (bound); the G1 and G2 adds
-                 also at one and two lanes (Horner, the endgame).  Once over
+                 also at one and two lanes (Horner, the endgame); the G1
+                 wave kernels (K5 ec_madd, K6 ec_wave_add) on whole waves of
+                 the engine's own prepare of a 2^17-point chunk at c = 12,
+                 the first and the last wave, with edge lanes.  Once over
                  BN254 (8 limbs) and once over BLS12-381 (the 12-limb builds
                  over Fq, and the 8-limb NTT kernels with BLS12-381 Fr's
                  constants)
@@ -24,7 +27,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
   prove_full     synthetic zkey at 2^20 constraints built on the card, 3-party
                  REP3 proof cold and warm; proofs equal and on curve; the G2
                  waves went through `ec_wave_add_g2`; NTT round trips; one G1
-                 and one G2 MSM against a host-computed known discrete log
+                 and one G2 MSM against a host-computed known discrete log,
+                 each wave one launch of its wave kernel (`ec_madd`,
+                 `ec_wave_add_g2`)
   prove_sharded  the same zkey and shares, each party's driver built with
                  `devices` = every visible card (the one card twice when
                  there is one), so every prover MSM and (i)NTT goes through
@@ -37,7 +42,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
   prove_bls      the hand-built circuit over BLS12-381 through groth16_setup
                  and the loader: a 3-party REP3 proof with one-device
                  drivers and one with sharded drivers; the pairing verifier
-                 accepts both and refuses a changed public input
+                 accepts both and refuses a changed public input; one G1 MSM
+                 through each driver's engine, equal, each wave one launch of
+                 its 12-limb wave kernel
   graft          graft_entry.entry() and graft_entry.dryrun_multichip(2)
 The launch counts are set to 0 just before each phase's first 3-party proof
 and read just after it, so they hold the proving paths alone; a line
@@ -60,7 +67,12 @@ Integer peak used for the bound: the card's table gives 67 TFLOP/s float32
 outside the tensor cores, i.e. 33.5e12 fused multiply-adds a second on 128
 lanes per SM; 32-bit integer multiply-adds issue on half as many lanes, so
 16.75e12 a second.  Memory rate: 3.35e12 bytes a second.  A Montgomery
-product of L limbs counts 2*L*L + L multiply-adds.
+product of L limbs counts 2*L*L + L multiply-adds, a squaring
+L*(L+1)/2 + L*L + L, an Fq2 product 3*L*L + 2*(L*L + L) (Karatsuba, one
+reduction a component).  A complete add (RCB16 Alg. 7) is 12 products and
+two by b3; where b3 is a small integer (both G1s, BLS12-381's G2) those two
+are a few modular adds and count nothing.  The mixed add (madd-2007-bl) is 7
+products and 4 squarings.
 """
 
 from __future__ import annotations
@@ -133,6 +145,13 @@ def rand_field(f, n_shape, gen: torch.Generator):
 def bound(bytes_moved: float, mads: float):
     tb, to = bytes_moved / MEM_RATE * 1e3, mads / INT_MAD_RATE * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def add_products(ops) -> int:
+    """Products of one complete add (RCB16 Alg. 7) over the group of `ops`:
+    12, and 2 more where b3 is not a small integer."""
+    b3 = ops.b3_host if isinstance(ops.b3_host, tuple) else (ops.b3_host,)
+    return 12 if all(c < 256 for c in b3) else 14
 
 
 def host_tower(curve):
@@ -219,11 +238,12 @@ def phase_kernels(curve, device) -> list:
     Rows are named by the launch count's key: the kernel's name for 8 limbs,
     `<name>_l12` for 12."""
     from cocircom_tpu_torch.ops import kernels
-    from cocircom_tpu_torch.ops.curve import (ProjPoint, ec_add_g2_plain, ec_add_plain,
-                                              ec_madd, ec_madd_plain, ec_wave_add,
-                                              ec_wave_add_g2, ec_wave_add_g2_plain,
-                                              ec_wave_add_plain, g1_ops, g2_ops, leaves, pmap)
+    from cocircom_tpu_torch.ops.curve import (ProjPoint, add_wave_lanes, add_wave_plain,
+                                              ec_add_g2_plain, ec_add_plain, ec_madd,
+                                              ec_wave_add, ec_wave_add_g2, ec_wave_add_g2_plain,
+                                              g1_ops, g2_ops, leaves, madd_wave_plain, pmap)
     from cocircom_tpu_torch.ops.field import get_field, mont_mul_plain
+    from cocircom_tpu_torch.ops.msm import MSM
     from cocircom_tpu_torch.ops.ntt import (butterfly, butterfly_plain, ntt_columns,
                                             ntt_columns_plain, ntt_engine, power_table)
 
@@ -234,6 +254,8 @@ def phase_kernels(curve, device) -> list:
     L = fq.L
     f1 = fr if L == 8 else fq            # the field K1-K3 are timed over
     mpm = 2 * L * L + L                  # multiply-adds of one Montgomery product
+    msq = L * (L + 1) // 2 + L * L + L   # of one Montgomery squaring
+    add_mads = add_products(g1) * mpm    # of one complete G1 add
     W = 4 * L                            # bytes of one element
     out = []
 
@@ -250,8 +272,15 @@ def phase_kernels(curve, device) -> list:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    def record(name, source, replaces, err, ms, plain_ms, nbytes, mads, shape, **extra):
-        b_ms, by = bound(nbytes, mads)
+    def record(name, source, replaces, err, ms, plain_ms, nbytes, mads, shape, per_launch=None,
+               **extra):
+        """per_launch: [(bytes, multiply-adds)] of each of several launches
+        that `ms` is the mean of; the bound is then their mean."""
+        if per_launch:
+            b_ms = sum(bound(*x)[0] for x in per_launch) / len(per_launch)
+            by = bound(sum(x[0] for x in per_launch), sum(x[1] for x in per_launch))[1]
+        else:
+            b_ms, by = bound(nbytes, mads)
         out.append({
             "name": kernels.count_key(name, L), "route": "cuda",
             "source": f"cocircom_tpu_torch/csrc/{source}",
@@ -373,81 +402,164 @@ def phase_kernels(curve, device) -> list:
     ms = time_cuda(lambda: g1.add(P, Q), 50)
     pms = timed_plain(lambda: ec_add_plain(fq, g1._b3_mont, P, Q))
     record("ec_add", "ec_add.cu", "cocircom_tpu/ops/pallas_curve.py:225", err, ms, pms,
-           9 * W * nl, 14 * mpm * nl, [L, 22, 2048], ms_1_lane=few[1], ms_2_lanes=few[2],
-           bound_ms_1_lane=bound(9 * W, 14 * mpm)[0])
+           9 * W * nl, add_mads * nl, [L, 22, 2048], ms_1_lane=few[1], ms_2_lanes=few[2],
+           bound_ms_1_lane=bound(9 * W, add_mads)[0])
 
-    # ---- K5 ec_madd: (L, 22, 2049, 8) lanes: one wave of a c = 12 MSM ----
-    wave = (22, 2049, 8)
-    nl = 22 * 2049 * 8
-    small = torch.randint(1, 1 << 15, (1, nl), generator=gen, dtype=torch.int64)
+    # ---- K5 ec_madd and K6 ec_wave_add: whole waves of a c = 12 MSM over one
+    # 2^17-point chunk, (L, 22, 2049, 8) lanes, from the engine's own prepare
+    # of random scalars; the first and the last wave held to the plain
+    # version, every wave of the chunk timed in turn (ms is the mean a
+    # launch, as the path gives it) ----
+    cw, npt = 12, 1 << 17
+    nbits = curve.fr.bits
+    wave = (-(-(nbits + 1) // cw), (1 << (cw - 1)) + 1, 8)    # (22, 2049, 8)
+    nl = wave[0] * wave[1] * wave[2]
+    eng = MSM(g1, c=cw, t=8, scalar_bits=nbits)
+    scal = rand_field(fr, (npt,), gen)
+    small = torch.randint(1, 1 << 15, (1, npt), generator=gen, dtype=torch.int64)
     pts = g1.scalar_mul(base, small.to(torch.int32).to(device), nbits=15)
-    ax, ay = g1.to_affine_limbs(pts)
-    rows = torch.cat([ax, ay], dim=0).t().contiguous()
-    rows[5:9] = 0                                           # (0,0) rows: identity
-    valid = torch.rand(nl, generator=gen).to(device) < 0.8  # invalid lanes pass
-    acc0 = ProjPoint(*(c.reshape((L,) + wave).contiguous() for c in (
-        ax.roll(7, dims=1), ay.roll(7, dims=1), fq.one_mont((nl,)).contiguous())))
-    ref = ec_madd_plain(fq, acc0, rows, valid)
-    acc = ProjPoint(*(c.clone() for c in acc0))
-    got = ec_madd(fq, acc, rows, valid)
-    err = max(max_err(g, r) for g, r in zip(got, ref))
-    check(err == 0, f"ec_madd (L={L}) disagrees with ec_madd_plain (max abs err {err})")
-    untouched = ~valid
-    untouched[5:9] = True
-    check(all(torch.equal(g.reshape(L, -1)[:, untouched], a.reshape(L, -1)[:, untouched])
-              for g, a in zip(got, acc0)), "ec_madd: a masked lane changed")
-    n_valid = int(valid.sum().item())
-    n_live = n_valid - int(valid[5:9].sum().item())
-    ms = time_cuda(lambda: ec_madd(fq, acc, rows, valid), 50)
-    pms = timed_plain(lambda: ec_madd_plain(fq, acc0, rows, valid))
-    record("ec_madd", "ec_madd.cu", "cocircom_tpu/ops/pallas_curve.py:507", err, ms, pms,
-           nl + 2 * W * n_valid + 6 * W * n_live, 11 * mpm * n_live, [L, *wave])
-
-    # ---- K6 ec_wave_add: (L, 22, 2049, 8) lanes: one wave of the complete-add
-    # path of a c = 12 MSM shard (2^19 points: half of the sharded 2^20 prove).
-    # Accumulators and points are projective with generic z ----
     proj = g1.add(pts, ProjPoint(*(c.roll(3, dims=1) for c in pts)))   # z != 1
-    acc0 = ProjPoint(*(c.roll(11, dims=1).contiguous() for c in proj))
-    rows3 = torch.cat(list(proj), dim=0).t().contiguous()              # (nl, 3L)
-    valid = torch.rand(nl, generator=gen).to(device) < 0.8
-    neg = torch.rand(nl, generator=gen).to(device) < 0.5
-    ident = g1.identity((16,))
-    acc_rows = torch.cat(list(acc0), dim=0).t()                        # lane's own accumulator
-    for i, c in enumerate(acc0):
-        c[:, :16] = ident[i]                                           # identity accumulator
-    rows3[16:32] = torch.cat(list(ident), dim=0).t()                   # identity point
-    rows3[32:64] = acc_rows[32:64]                                     # the accumulator itself:
-    neg[32:48], neg[48:64] = False, True                               # doubling, inverse point
-    valid[:64], neg[:16] = True, False
-    rows3[64:80] = 0                                                   # masked lanes with an
-    valid[64:80], neg[64:80] = False, True                             # all-zero row
-    acc0 = ProjPoint(*(c.reshape((L,) + wave).contiguous() for c in acc0))
-    ref = ec_wave_add_plain(fq, g1._b3_mont, acc0, rows3, neg, valid)
-    acc = ProjPoint(*(c.clone() for c in acc0))
-    got = ec_wave_add(g1, acc, rows3, neg, valid)
-    err = max(max_err(g, r) for g, r in zip(got, ref))
-    check(err == 0, f"ec_wave_add (L={L}) disagrees with ec_wave_add_plain (max abs err {err})")
-    check(all(torch.equal(g.reshape(L, -1)[:, ~valid], a.reshape(L, -1)[:, ~valid])
-              for g, a in zip(got, acc0)), "ec_wave_add: a masked lane changed")
-    flat = ProjPoint(*(c.reshape(L, -1) for c in got))
-    dec = g1.decode_points(ProjPoint(*(c[:, :64] for c in flat)))
-    want = g1.decode_points(ProjPoint(*(c[:, :16] for c in proj)))
+    spread = (torch.arange(nl, device=device) * 7 + 3) % npt
+
+    def lanes_of(t):
+        return t.reshape((L,) + wave).contiguous()
+
+    def check_waves(name, run, plain, acc0, waves, masks):
+        """Kernel against plain version on waves `waves` from acc0; masked
+        lanes untouched.  Returns the largest error."""
+        err = 0
+        for w in waves:
+            acc = ProjPoint(*(c.clone() for c in acc0))
+            got, ref = run(acc, w), plain(acc0, w)
+            err = max(err, max(max_err(g, r) for g, r in zip(got, ref)))
+            keep = ~masks(w)
+            check(all(torch.equal(g.reshape(L, -1)[:, keep], a.reshape(L, -1)[:, keep])
+                      for g, a in zip(got, acc0)), f"{name}: a masked lane changed")
+        check(err == 0, f"{name} (L={L}) disagrees with its plain version (max abs err {err})")
+        return err, got
+
+    def time_chunk(run, acc0, n_super, reps):
+        """Mean ms a launch over every wave of the chunk, in order."""
+        acc = ProjPoint(*(c.clone() for c in acc0))
+        return time_cuda(lambda: [run(acc, w) for w in range(n_super)], reps) / n_super
+
+    def time_chunk_plain(plain, acc0, n_super):
+        """Mean ms a wave of the plain version over the same waves, in order
+        (check_waves ran it before, so nothing is built here)."""
+        acc = acc0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for w in range(n_super):
+            acc = plain(acc, w)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n_super
+
+    # K5: the run-aligned signed affine table, (0, 0) rows for a few points
+    scatter_idx, astart, aend, n_waves = eng._prepare_madd(scal, nbits, cw)
+    rows2 = eng._affine_em(pts)
+    zero_pts = torch.arange(40, 48, device=device)
+    rows2[zero_pts] = 0
+    rows2[zero_pts + npt] = 0
+    table = eng._table_rows(rows2, scatter_idx)
+    m_tab = scatter_idx.shape[1]
+    n_super = -(-int(n_waves.item()) // 8)
+    kp1 = torch.arange(wave[1], device=device)[None, :, None]
+
+    def madd_lanes(w):
+        """(valid, valid with a row other than (0, 0), row index) of wave w's lanes."""
+        pos = astart[:, :, None] + w * 8 + torch.arange(8, device=device)
+        valid = ((pos < aend[:, :, None]) & (kp1 > 0)).reshape(-1)
+        rowi = (pos + (torch.arange(wave[0], device=device) * m_tab)[:, None, None]).reshape(-1)
+        rowi = rowi.clamp(max=table.shape[0] - 1)
+        nonzero = (table[rowi] != 0).any(dim=1)
+        return valid, valid & nonzero, rowi
+
+    # Jacobian accumulators with random Z (X = x Z^2, Y = y Z^3); in the
+    # first wave 16 live lanes hold the point they add (doubling) and 16 its
+    # inverse
+    ax, ay = g1.to_affine_limbs(ProjPoint(*(c[:, spread] for c in proj)))
+    _, live, rowi = madd_lanes(0)
+    live = live.nonzero().flatten()[:32]
+    ax[:, live] = table[rowi[live], :L].t()
+    ay[:, live] = table[rowi[live], L:].t()
+    ay[:, live[16:]] = fq.neg(ay[:, live[16:]])
+    z = rand_field(fq, (nl,), gen)
+    zz = fq.mont_mul(z, z)
+    acc0 = ProjPoint(lanes_of(fq.mont_mul(ax, zz)), lanes_of(fq.mont_mul(ay, fq.mont_mul(zz, z))),
+                     lanes_of(z))
+
+    run5 = lambda acc, w: ec_madd(fq, acc, table, astart, aend, w)  # noqa: E731
+    plain5 = lambda acc, w: madd_wave_plain(fq, acc, table, astart, aend, w)  # noqa: E731
+    err, _ = check_waves("ec_madd", run5, plain5, acc0, (0, n_super - 1),
+                         lambda w: madd_lanes(w)[1])
+    zero_taken = sum(int((v & ~lv).sum()) for v, lv, _ in map(madd_lanes, range(n_super)))
+    check(zero_taken > 0, "ec_madd: no lane met a (0, 0) row")
+    live5 = [[int(m.sum()) for m in madd_lanes(w)[:2]] for w in range(n_super)]
+    ms = time_chunk(run5, acc0, n_super, 4)
+    pms = time_chunk_plain(plain5, acc0, n_super)
+    record("ec_madd", "ec_madd.cu", "cocircom_tpu/ops/pallas_curve.py:507", err, ms, pms, 0, 0,
+           [L, *wave], waves=n_super, live_share=sum(lv for _, lv in live5) / (nl * n_super),
+           per_launch=[(16 * wave[0] * wave[1] + 2 * W * v + 6 * W * lv, (7 * mpm + 4 * msq) * lv)
+                       for v, lv in live5])
+    del table, rows2, scatter_idx, acc0, z, zz
+
+    # K6: the complete-add prepare over projective points with generic z;
+    # edge lanes in the first wave: identity accumulators, doubling, inverse
+    # points, identity points and all-zero rows negated
+    digits, order, sortedb, bstart, n_waves = eng._prepare(scal, nbits, cw)
+    n_super = -(-int(n_waves.item()) // 8)
+    pts_em = eng._emajor(proj)
+    src, neg, valid = add_wave_lanes(order, sortedb, digits, bstart, 0, 8)
+    live = valid.nonzero().flatten()
+    ident = g1.identity((1,))
+    pts_em[src[live[64:80]]] = torch.cat(list(ident), dim=0).t()       # identity points
+    nz = live[neg[live]][40:56]
+    pts_em[src[nz]] = 0                                                # zero rows, negated
+    acc0 = [c[:, spread].clone() for c in proj]
+    x2, y2, z2 = (pts_em[src[live[:48]], k * L:(k + 1) * L].t() for k in range(3))
+    y2 = torch.where(neg[live[:48]][None], fq.neg(y2), y2)            # what each lane adds
+    for i, c in enumerate(ident):
+        acc0[i][:, live[:16]] = c                                      # identity accumulator
+    acc0[0][:, live[16:48]] = x2[:, 16:]
+    acc0[2][:, live[16:48]] = z2[:, 16:]
+    acc0[1][:, live[16:32]] = y2[:, 16:32]                             # doubling
+    acc0[1][:, live[32:48]] = fq.neg(y2[:, 32:48])                     # inverse point
+    acc0 = ProjPoint(*(lanes_of(c) for c in acc0))
+
+    def add_lanes(w):
+        return add_wave_lanes(order, sortedb, digits, bstart, w, 8)[2]
+
+    run6 = lambda acc, w: ec_wave_add(g1, acc, pts_em, order, sortedb, digits, bstart, w)  # noqa: E731
+    plain6 = lambda acc, w: add_wave_plain(g1, acc, pts_em, order, sortedb, digits, bstart, w)  # noqa: E731
+    err, got = check_waves("ec_wave_add", run6, plain6, acc0, (n_super - 1, 0), add_lanes)
+    flat = ProjPoint(*(c.reshape(L, -1)[:, live[:48]] for c in got))
+    dec = g1.decode_points(flat)
+    want = g1.decode_points(ProjPoint(x2[:, :16], y2[:, :16], z2[:, :16]))
     check(dec[:16] == want, "ec_wave_add: identity + P is not P")
-    dbl = g1.decode_points(g1.double(
-        ProjPoint(*(c.reshape(L, -1)[:, 32:48].contiguous() for c in acc0))))
-    check(dec[32:48] == dbl, "ec_wave_add: P + P is not 2P")
-    check(all(d is None for d in dec[48:64]), "ec_wave_add: P + (-P) is not the identity")
-    n_valid = int(valid.sum().item())
-    ms = time_cuda(lambda: ec_wave_add(g1, acc, rows3, neg, valid), 50)
-    pms = timed_plain(lambda: ec_wave_add_plain(fq, g1._b3_mont, acc0, rows3, neg, valid))
+    dbl = g1.decode_points(g1.double(ProjPoint(x2[:, 16:32], y2[:, 16:32], z2[:, 16:32])))
+    check(dec[16:32] == dbl, "ec_wave_add: P + P is not 2P")
+    check(all(d is None for d in dec[32:48]), "ec_wave_add: P + (-P) is not the identity")
+    pos = bstart[:, :, None] + (n_super - 1) * 8 + torch.arange(8, device=device)
+    check(bool((pos >= npt).any()), "ec_wave_add: no lane of the last wave was clamped")
+    work6 = []                     # (bytes, multiply-adds) of each wave
+    for w in range(n_super):
+        pos = bstart[:, :, None] + w * 8 + torch.arange(8, device=device)
+        asked = int(((pos < npt) & (kp1 > 0)).sum())       # lanes that read sortedb
+        v = int(add_lanes(w).sum())
+        work6.append((8 * wave[0] * wave[1] + 8 * asked + (16 + 9 * W) * v, add_mads * v))
+    ms = time_chunk(run6, acc0, n_super, 4)
+    pms = time_chunk_plain(plain6, acc0, n_super)
     record("ec_wave_add", "ec_wave_add.cu", "cocircom_tpu/ops/pallas_curve.py:256", err, ms, pms,
-           nl + (1 + 9 * W) * n_valid, 14 * mpm * n_valid, [L, *wave])
-    del proj, acc0, acc, rows3, got, ref
+           0, 0, [L, *wave], waves=n_super,
+           live_share=sum(int(add_lanes(w).sum()) for w in range(n_super)) / (nl * n_super),
+           per_launch=work6)
+    del proj, pts, pts_em, acc0, got, digits, order, sortedb, scal
 
     # ---- ec_add_g2: (L, 22, 2049, 8) lanes over Fq2: one wave of a c = 12
     # G2 MSM.  The plain version stacks 18 base products per lane in int64
     # columns, so it runs over slices of the lane axis (2 windows each) ----
     g2 = g2_ops(curve, device)
+    add2_mads = add_products(g2) * (3 * L * L + 2 * (L * L + L))     # of one G2 add
     small = torch.randint(1, 1 << 15, (1, nl), generator=gen, dtype=torch.int64)
     P2 = g2.scalar_mul(g2.encode_points([curve.g2_gen]),
                        small.to(torch.int32).to(device), nbits=15)
@@ -489,8 +601,8 @@ def phase_kernels(curve, device) -> list:
     ms = time_cuda(lambda: g2.add(P2, Q2), 20)
     pms = timed_plain(lambda: g2_plain(P2, Q2))
     record("ec_add_g2", "ec_add_g2.cu", "cocircom_tpu/ops/curve.py:223", err, ms, pms,
-           18 * W * nl, 42 * mpm * nl, [L, *wave], ms_1_lane=few[1], ms_2_lanes=few[2],
-           bound_ms_1_lane=bound(18 * W, 42 * mpm)[0])
+           18 * W * nl, add2_mads * nl, [L, *wave], ms_1_lane=few[1], ms_2_lanes=few[2],
+           bound_ms_1_lane=bound(18 * W, add2_mads)[0])
 
     # ---- ec_wave_add_g2: (L, 22, 2049, 8) lanes over Fq2: one G2 wave of a
     # c = 12 MSM, 80% valid, half negated; accumulators and points projective
@@ -544,7 +656,7 @@ def phase_kernels(curve, device) -> list:
     ms = time_cuda(lambda: ec_wave_add_g2(g2, acc, rows6, neg, valid), 20)
     pms = timed_plain(lambda: wave_plain(acc0))
     record("ec_wave_add_g2", "ec_wave_add_g2.cu", "cocircom_tpu/ops/msm.py:350", err, ms, pms,
-           nl + (1 + 18 * W) * n_valid, 42 * mpm * n_valid, [L, *wave])
+           nl + (1 + 18 * W) * n_valid, add2_mads * n_valid, [L, *wave])
     del proj2, acc0, acc, rows6, got, ref
 
     emit({"phase": "kernels", "curve": curve.name, "limbs": L,
@@ -717,14 +829,19 @@ def phase_prove_full(curve, device, log_n: int, inputs) -> dict:
     # one G1 and one G2 MSM against the known discrete log
     s_std = rand_field(fr, (zkey.n_vars,), gen)
     for name, (eng, ops, arr, want) in msm_cases(curve, d, zkey, k_a, k_b2, fr, s_std).items():
+        kernels.reset_launch_counts()
         t1 = time.perf_counter()
         res = eng.msm(arr, s_std)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t1
+        c = kernels.launch_counts()
         got = ops.decode_points(pmap(lambda c: c[:, None], res))[0]
         check(got == want, f"prove_full: MSM {name} != (sum k_i s_i) G")
+        wave_kernel = "ec_madd" if name == "g1" else "ec_wave_add_g2"
+        check(c[wave_kernel] == eng.last_waves > 0 and c["ec_wave_add"] == 0,
+              f"prove_full: the {name} MSM did not run each wave as one {wave_kernel} launch")
         emit({"phase": "msm_check", "group": name, "n": int(zkey.n_vars),
-              "seconds": round(dt, 3), "waves": eng.last_waves})
+              "seconds": round(dt, 3), "waves": eng.last_waves, wave_kernel: c[wave_kernel]})
 
     emit({"phase": "prove_full", "log_n": log_n, "constraints": zkey.matrices.num_constraints,
           "zkey_build_s": round(build_s, 2), "prove_cold_s": round(cold, 3),
@@ -836,7 +953,10 @@ def phase_prove_bls(device, n_mul: int) -> dict:
     one-device drivers (mixed-add G1 waves) and one through sharded drivers
     (`ec_wave_add`), both verified.  Returns the two proofs' launch counts."""
     from cocircom_tpu_torch.fields.params import BLS12_381 as curve
+    from cocircom_tpu_torch.mpc.driver import PlainDriver
     from cocircom_tpu_torch.ops import kernels
+    from cocircom_tpu_torch.ops.curve import pmap
+    from cocircom_tpu_torch.ops.field import get_field
     from cocircom_tpu_torch.parallel.sharded import device_list
 
     zkey, vk, shares, publics, setup_s = small_inputs(curve, device, n_mul, b"chip_smoke_bls")
@@ -850,10 +970,26 @@ def phase_prove_bls(device, n_mul: int) -> dict:
     for k in ("mont_mul", "ec_add", "ec_madd", "ec_wave_add", "ec_add_g2", "ec_wave_add_g2"):
         check(counts[kernels.count_key(k, 12)] > 0,
               f"prove_bls: the 12-limb {k} was never launched")
+    # one G1 MSM of the zkey's a_query through each driver's engine: equal
+    # results, and each wave one launch of its 12-limb wave kernel
+    fr = get_field(curve.fr.p, curve.name + ".fr", device)
+    s_std = rand_field(fr, (zkey.n_vars,), torch.Generator().manual_seed(4545))
+    res, waves = [], {}
+    for drv, key in ((PlainDriver(curve, device=device), "ec_madd_l12"),
+                     (PlainDriver(curve, devices=devices), "ec_wave_add_l12")):
+        kernels.reset_launch_counts()
+        pt = drv.msm_g1_engine.msm(drv.g1_proj(zkey.a_query), s_std)
+        c = kernels.launch_counts()
+        eng_waves = drv.msm_g1_engine.last_waves
+        check(c[key] == eng_waves > 0 and sum(c[k] for k in ("ec_madd_l12", "ec_wave_add_l12"))
+              == eng_waves, f"prove_bls: the G1 MSM did not run each wave as one {key} launch")
+        res.append(drv.g1.decode_points(pmap(lambda t: t[:, None], pt))[0])
+        waves[key] = eng_waves
+    check(res[0] == res[1], "prove_bls: the sharded G1 MSM differs from the local engine's")
     emit({"phase": "prove_bls", "curve": curve.name, "constraints": n_mul,
           "domain": zkey.domain_size, "setup_s": round(setup_s, 2),
           "prove_s": round(wall, 3), "prove_sharded_s": round(wall_s, 3),
-          "verified": True, "tamper_rejected": True,
+          "verified": True, "tamper_rejected": True, "g1_msm_waves": waves,
           "launches": {k: v for k, v in counts.items() if v}})
     return counts
 

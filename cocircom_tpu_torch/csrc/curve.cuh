@@ -1,58 +1,22 @@
 // The complete projective addition of the curve kernels: Renes-Costello-
 // Batina 2016 Algorithm 7 on y^2 = x^3 + b (a = 0), valid for every input:
-// identity (0 : 1 : 0), doubling, inverse points.  Three forms of it:
-// ec_add_core, one lane a thread over a field-operations class (K6
-// ec_wave_add over FqOps); ec_add_pair, a pair of threads a lane over
-// Fq2 = Fq[u]/(u^2 + 1) (the G2 add and the G2 wave; the non-residue is
-// u^2 = -1 for BN254 and for BLS12-381); ec_add_team, a team of threads a
-// lane over Fq (K4 ec_add).
+// identity (0 : 1 : 0), doubling, inverse points.  Two forms of it, both
+// on the carry-chain arithmetic of field.cuh: ec_add_pair, a pair of
+// threads a lane over Fq2 = Fq[u]/(u^2 + 1) (the G2 add and the G2 wave;
+// the non-residue is u^2 = -1 for BN254 and for BLS12-381); ec_add_team, a
+// team of S threads a lane over Fq (S = 1 or 3: K4 ec_add and K6
+// ec_wave_add).
 #pragma once
 #include "field.cuh"
 
 namespace cc {
 
-// ------------------------------------------------------------- base field
-template <int L>
-struct FqOps {
-  typedef Fe<L> El;
-  const FieldConst<L>& F;
-  __device__ explicit FqOps(const FieldConst<L>& f) : F(f) {}
-  __device__ __forceinline__ El add(const El& a, const El& b) const { return add_mod(a, b, F); }
-  __device__ __forceinline__ El sub(const El& a, const El& b) const { return sub_mod(a, b, F); }
-  __device__ __forceinline__ El mul(const El& a, const El& b) const { return mont_mul(a, b, F); }
-  __device__ __forceinline__ El b3() const { return fe_const(F.b3); }
-};
-
-// --------------------------------------------------------------- formula
-template <class K>
-__device__ __forceinline__ void ec_add_core(const K& k, const typename K::El& x1,
-                                            const typename K::El& y1, const typename K::El& z1,
-                                            const typename K::El& x2, const typename K::El& y2,
-                                            const typename K::El& z2, typename K::El& X3,
-                                            typename K::El& Y3, typename K::El& Z3) {
-  typedef typename K::El El;
-  const El b3 = k.b3();
-  const El m_xx = k.mul(x1, x2);
-  const El m_yy = k.mul(y1, y2);
-  const El m_zz = k.mul(z1, z2);
-  const El t3 = k.sub(k.sub(k.mul(k.add(x1, y1), k.add(x2, y2)), m_xx), m_yy);  // X1Y2+X2Y1
-  const El t4 = k.sub(k.sub(k.mul(k.add(y1, z1), k.add(y2, z2)), m_yy), m_zz);  // Y1Z2+Y2Z1
-  const El xz = k.sub(k.sub(k.mul(k.add(x1, z1), k.add(x2, z2)), m_xx), m_zz);  // X1Z2+X2Z1
-  const El t0 = k.add(k.add(m_xx, m_xx), m_xx);                                  // 3 X1X2
-  const El t2 = k.mul(m_zz, b3);                                                 // b3 Z1Z2
-  const El z3p = k.add(m_yy, t2);
-  const El t1 = k.sub(m_yy, t2);
-  const El y3 = k.mul(xz, b3);                                                   // b3 (X1Z2+X2Z1)
-  X3 = k.sub(k.mul(t3, t1), k.mul(t4, y3));
-  Y3 = k.add(k.mul(t1, z3p), k.mul(y3, t0));
-  Z3 = k.add(k.mul(z3p, t4), k.mul(t0, t3));
-}
-
 // ================================================= cooperative designs
-// The formula above, split over threads that exchange operands through
+// The formula, split over threads that exchange operands through
 // warp shuffles, on the carry-chain arithmetic of field.cuh.  Every thread
-// of a warp must reach every shuffle: callers run lanes past the end and
-// masked lanes on a clamped lane and skip only their stores.
+// of a warp must reach every shuffle (a team of one thread has none):
+// callers run lanes past the end and masked lanes on a clamped lane and
+// skip only their stores.
 
 constexpr unsigned kFullMask = 0xffffffffu;
 

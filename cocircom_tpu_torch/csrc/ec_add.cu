@@ -27,10 +27,12 @@
 //                      (cocircom_tpu/ops/msm.py, `MSM._wave_step`); this is
 //                      the G2 form of K6 (csrc/ec_wave_add.cu).
 //
-// Bound on an H100.  G1 (L = 8): 14 Montgomery products (about 1,900
-// multiply-adds) for 288 bytes (six coordinates read, three written): about
-// 7 multiply-adds a byte, bound by the integer ALUs.  G2: 42 base products'
-// worth for 576 bytes, about 10 a byte, the same side.  In the carry-chain
+// Bound on an H100.  G1 (L = 8): 12 Montgomery products (1,632
+// multiply-adds; the two by b3 = 9 or 12 are a few modular adds) for 288
+// bytes (six coordinates read, three written): about 5.7 multiply-adds a
+// byte, bound by the integer ALUs.  G2: 14 Fq2 products over BN254 (its b3
+// is a general Fq2 element; 12 over BLS12-381), each 3L^2 + 2(L^2 + L)
+// multiply-adds (Karatsuba), for 576 bytes, about 8 a byte, the same side.  In the carry-chain
 // product ptxas makes each counted multiply-add one IMAD (a mad.lo and a
 // madc.hi link become one wide IMAD) and about half an IADD3; the 64-bit
 // CIOS it replaced took 1.8 IMAD and 1.9 IADD3 (static counts, SASS).

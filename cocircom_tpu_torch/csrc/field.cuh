@@ -15,10 +15,12 @@
 // Two forms of the arithmetic live here.  The first (mont_mul, add_mod,
 // sub_mod, cond_sub_p) is written with 64-bit intermediates (a*b + c + d
 // never overflows 64 bits for 32-bit a, b, c, d), which the compiler lowers
-// to IMAD.WIDE and carry-propagating adds; K1-K3, K5 and K6 use it.  The
-// second (the *_cc functions below) is written in PTX carry-flag
-// instructions (mad.lo.cc, madc.hi.cc, addc.cc, subc.cc); the G1 add (K4)
-// and the G2 kernels use it.
+// to IMAD.WIDE and carry-propagating adds; the field kernels K1-K3 use it,
+// and so does the sweep's yardstick of the old curve kernels
+// (cocircom_tpu_torch/tools/ec_add_one_lane.cu).  The second (the *_cc
+// functions below) is written in PTX carry-flag instructions (mad.lo.cc,
+// madc.hi.cc, addc.cc, subc.cc); every curve kernel uses it: K4 ec_add, K5
+// ec_madd, K6 ec_wave_add and the G2 kernels.
 //
 // CC_HOST_MODEL: defined only by the host model of the carry-chain code
 // (cocircom_tpu_torch/tools/carry_model.cpp), which compiles these

@@ -9,11 +9,15 @@ ALL inputs (identity, doubling, inverses).  Identity is (0 : 1 : 0).
 for G1 over Fq, csrc/ec_add_g2.cu `ec_add_g2` for G2 over Fq2).  The plain versions are taken
 only for CPU tensors: `ec_add_plain` for G1 and `ec_add_g2_plain` for G2,
 the three-wave stacked-multiply composition over `mont_mul_plain` and the
-plain add and subtract.  The MSM's wave updates live here too: the mixed
-add (csrc/ec_madd.cu, plain version `ec_madd_plain`) and the masked complete
-add with per-lane negation, for G1 (csrc/ec_wave_add.cu, plain version
-`ec_wave_add_plain`) and for G2 (csrc/ec_wave_add_g2.cu, plain version
-`ec_wave_add_g2_plain`).
+plain add and subtract.  The MSM's wave updates live here too.  For G1 a
+whole wave is one kernel that derives its lanes' rows from the MSM's
+prepare itself: the mixed add (csrc/ec_madd.cu, plain version
+`madd_wave_plain`: the wave's block gather, then `ec_madd_plain` on the
+rows) and the masked complete add with per-lane negation (csrc/ec_wave_add.cu,
+plain version `add_wave_plain`: the wave's index gathers, then
+`ec_wave_add_plain`).  For G2 the wave's rows are gathered in PyTorch
+(`add_wave_lanes`) and the kernel csrc/ec_wave_add_g2.cu (plain version
+`ec_wave_add_g2_plain`) adds them.
 """
 
 from __future__ import annotations
@@ -268,8 +272,9 @@ def ec_add_plain(f: Field, b3_mont: torch.Tensor, p: ProjPoint, q: ProjPoint) ->
 
 
 def ec_madd_plain(f: Field, acc: ProjPoint, rows, valid) -> ProjPoint:
-    """Masked Jacobian += affine (madd-2007-bl) in plain torch: the same
-    function as the CUDA kernel `ec_madd`, either device, out of place.
+    """Masked Jacobian += affine (madd-2007-bl) in plain torch, on rows the
+    caller gathered: what the CUDA kernel `ec_madd` does to each lane once it
+    has found the lane's row (`madd_wave_plain`), either device, out of place.
     rows (n, 2L): row i = [x limbs | y limbs]; (0, 0) is the identity;
     valid (n,) bool: False lanes pass through."""
     L = f.L
@@ -302,8 +307,10 @@ def ec_madd_plain(f: Field, acc: ProjPoint, rows, valid) -> ProjPoint:
 
 def ec_wave_add_plain(f: Field, b3_mont: torch.Tensor, acc: ProjPoint, rows, neg,
                       valid) -> ProjPoint:
-    """acc <- valid ? acc + (neg ? -pt : pt) : acc in plain torch: the same
-    function as the CUDA kernel `ec_wave_add`, either device, out of place.
+    """acc <- valid ? acc + (neg ? -pt : pt) : acc in plain torch, on rows the
+    caller gathered: what the CUDA kernel `ec_wave_add` does to each lane once
+    it has found the lane's point (`add_wave_plain`), either device, out of
+    place.
     rows (n, 3L): row i = [x | y | z limbs] of lane i's projective point;
     neg, valid (n,) bool.  Negate, `ec_add_plain`, select."""
     L = f.L
@@ -366,23 +373,91 @@ def ec_wave_add_g2_plain(ops: "CurveOps", acc: ProjPoint, rows, neg, valid) -> P
     return ops.select(valid.reshape(batch), added, acc)
 
 
-def ec_madd(f: Field, acc: ProjPoint, rows, valid) -> ProjPoint:
-    """The MSM wave update.  On CUDA tensors the kernel updates `acc` IN
-    PLACE (the caller owns it) and the same tensors are returned."""
-    if acc.x.is_cuda:
-        kernels.ec_madd(tuple(acc), rows, valid, f.kconsts)
-        return acc
+def add_wave_lanes(order, sortedb, digits, bucket_start, w: int, T: int):
+    """(src, neg, valid), each (nw (K+1) T,), of complete-add wave w: lane
+    (window, b, r) takes sorted position bucket_start[window, b] + wT + r,
+    clamped into the window; src is the point there, neg its digit's sign,
+    valid whether the position lies in bucket b's run (b > 0).  Lanes past
+    their run's end, bucket 0 and the top row's dead lanes get a clamped,
+    arbitrary src that `valid` keeps out of the accumulator."""
+    nw, Kp1 = bucket_start.shape
+    n = sortedb.shape[1]
+    dev = sortedb.device
+    bidx = torch.arange(Kp1, device=dev)[None, :, None]
+    ranks = torch.arange(T, device=dev)[None, None, :]
+    pos = bucket_start[:, :, None] + (w * T + ranks)  # (nw, Kp1, T)
+    woff = (torch.arange(nw, device=dev) * n)[:, None, None]
+    safe = (pos.clamp(0, n - 1) + woff).reshape(-1)
+    sb = sortedb.reshape(-1)[safe].reshape(nw, Kp1, T)
+    valid = (pos < n) & (sb == bidx) & (bidx > 0)
+    src = order.reshape(-1)[safe]
+    neg = digits.reshape(-1)[src + woff.expand(nw, Kp1, T).reshape(-1)] < 0
+    return src, neg, valid.reshape(-1)
+
+
+def add_wave_plain(ops: "CurveOps", acc: ProjPoint, pts_em, order, sortedb, digits,
+                   bucket_start, w: int) -> ProjPoint:
+    """Complete-add wave w of the MSM over G1 in plain torch: the same
+    function as the CUDA kernel `ec_wave_add`, either device, out of place.
+    acc: (L, nw, K+1, T) coordinates; pts_em (n, 3L): row i = [x | y | z
+    limbs] of point i; order, sortedb, digits (nw, n) and bucket_start
+    (nw, K+1) from the MSM's prepare.  The wave's index gathers
+    (`add_wave_lanes`), the row gather, then `ec_wave_add_plain`."""
+    src, neg, valid = add_wave_lanes(order, sortedb, digits, bucket_start, w, acc.x.shape[-1])
+    rows = pts_em.index_select(0, src)
+    return ec_wave_add_plain(ops.lane.f, ops._b3_mont, acc, rows, neg, valid)
+
+
+def madd_wave_rows(table, astart, aend, w: int, T: int):
+    """(rows, valid) of mixed-add wave w: lane (window, b, r) takes row
+    window M_tab + astart[window, b] + wT + r of the run-aligned table where
+    that is below aend[window, b] and b > 0.  Runs start at multiples of T,
+    so the wave reads one gather of T-row blocks, one index a bucket
+    (clamped into the table for lanes that take nothing)."""
+    nw, Kp1 = astart.shape
+    dev = astart.device
+    nblkT = table.shape[0] // (nw * T)
+    bidx = torch.arange(Kp1, device=dev)[None, :, None]
+    ranks = torch.arange(T, device=dev)[None, None, :]
+    pos = astart[:, :, None] + (w * T + ranks)
+    valid = (pos < aend[:, :, None]) & (bidx > 0)
+    idxT = ((astart + w * T) // T).clamp(0, nblkT - 1)
+    idxT = idxT + (torch.arange(nw, device=dev) * nblkT)[:, None]
+    blocks = table.reshape(nw * nblkT, -1).index_select(0, idxT.reshape(-1))
+    return blocks.reshape(nw * Kp1 * T, -1), valid.reshape(-1)
+
+
+def madd_wave_plain(f: Field, acc: ProjPoint, table, astart, aend, w: int) -> ProjPoint:
+    """Mixed-add wave w of the MSM in plain torch: the same function as the
+    CUDA kernel `ec_madd`, either device, out of place.  acc: Jacobian
+    (L, nw, K+1, T) coordinates; table (nw M_tab, 2L): the run-aligned
+    signed affine rows; astart, aend (nw, K+1): run bounds within a window's
+    M_tab rows.  The wave's block gather (`madd_wave_rows`), then
+    `ec_madd_plain`."""
+    rows, valid = madd_wave_rows(table, astart, aend, w, acc.x.shape[-1])
     return ec_madd_plain(f, acc, rows, valid)
 
 
-def ec_wave_add(ops: "CurveOps", acc: ProjPoint, rows, neg, valid) -> ProjPoint:
-    """The wave update of the complete-add MSM path (G1).  On CUDA tensors
+def ec_madd(f: Field, acc: ProjPoint, table, astart, aend, w: int) -> ProjPoint:
+    """Mixed-add wave w of the MSM (see `madd_wave_plain`).  On CUDA tensors
     the kernel updates `acc` IN PLACE (the caller owns it) and the same
     tensors are returned."""
     if acc.x.is_cuda:
-        kernels.ec_wave_add(tuple(acc), rows, neg, valid, ops._kconsts)
+        kernels.ec_madd(tuple(acc), table, astart, aend, w, f.kconsts)
         return acc
-    return ec_wave_add_plain(ops.lane.f, ops._b3_mont, acc, rows, neg, valid)
+    return madd_wave_plain(f, acc, table, astart, aend, w)
+
+
+def ec_wave_add(ops: "CurveOps", acc: ProjPoint, pts_em, order, sortedb, digits, bucket_start,
+                w: int) -> ProjPoint:
+    """Complete-add wave w of the MSM over G1 (see `add_wave_plain`).  On
+    CUDA tensors the kernel updates `acc` IN PLACE (the caller owns it) and
+    the same tensors are returned."""
+    if acc.x.is_cuda:
+        kernels.ec_wave_add(tuple(acc), pts_em, order, sortedb, digits, bucket_start, w,
+                            ops._kconsts)
+        return acc
+    return add_wave_plain(ops, acc, pts_em, order, sortedb, digits, bucket_start, w)
 
 
 def ec_wave_add_g2(ops: "CurveOps", acc: ProjPoint, rows, neg, valid) -> ProjPoint:

@@ -222,10 +222,10 @@ _ARGTYPES = {
     "ntt_columns": [_VP, _VP, _VP, _I, _LL, _I] + _TAIL,
     # x1 y1 z1 x2 y2 z2 ox oy oz, n, p_bcast, q_bcast
     "ec_add": [_VP] * 9 + [_LL, _I, _I] + _TAIL,
-    # x y z (updated in place), rows, valid, n
-    "ec_madd": [_VP] * 5 + [_LL] + _TAIL,
-    # x y z (updated in place), rows, neg, valid, n
-    "ec_wave_add": [_VP] * 6 + [_LL] + _TAIL,
+    # x y z (updated in place), table, astart, aend, m_tab, nw, kp1, t, wt
+    "ec_madd": [_VP] * 6 + [_LL, _I, _I, _I, _LL] + _TAIL,
+    # x y z (updated in place), pts, order, sortedb, digits, bucket_start, n, nw, kp1, t, wt
+    "ec_wave_add": [_VP] * 8 + [_LL, _I, _I, _I, _LL] + _TAIL,
     # in[12], out[6] (host arrays of device pointers), n, p_bcast, q_bcast
     "ec_add_g2": [_VP, _VP, _LL, _I, _I] + _TAIL,
     # acc[6] (host array of device pointers, updated in place), rows, neg, valid, n
@@ -428,11 +428,9 @@ def ec_add_g2(p, q, consts):
     return ((outs[0], outs[1]), (outs[2], outs[3]), (outs[4], outs[5]))
 
 
-def _wave_lanes(name: str, acc, coords: int, rows, row_coords: int, masks: dict) -> tuple:
-    """(limb count, lanes) of a wave kernel's operands: `coords` contiguous
-    int32 (L, *batch) accumulator tensors that it updates in place, rows of
-    `row_coords` L words a lane, and (n,) bool masks.  Shapes first, so that
-    a wrong one is named as such wherever the tensors lie; then the card."""
+def _acc_lanes(name: str, acc, coords: int) -> tuple:
+    """(limb count, lanes) of `coords` contiguous int32 (L, *batch)
+    accumulator tensors that a wave kernel updates in place."""
     if len(acc) != coords:
         raise ValueError(f"{name}: acc must be {coords} coordinate tensors")
     a0 = acc[0]
@@ -441,42 +439,76 @@ def _wave_lanes(name: str, acc, coords: int, rows, row_coords: int, masks: dict)
     for c in acc:
         if c.dtype != torch.int32 or not c.is_contiguous() or c.shape != a0.shape:
             raise ValueError(f"{name}: acc coordinates must be contiguous int32 tensors and alike")
-    L = a0.shape[0]
-    n = a0.numel() // L
-    if rows.dtype != torch.int32 or not rows.is_contiguous() \
-            or tuple(rows.shape) != (n, row_coords * L) or rows.data_ptr() % 16:
-        raise ValueError(f"{name}: rows must be a contiguous, 16-byte aligned int32 "
-                         f"({n}, {row_coords * L}) tensor")
-    for what, mask in masks.items():
-        if mask.dtype != torch.bool or mask.numel() != n or not mask.is_contiguous():
-            raise ValueError(f"{name}: {what} must be a contiguous bool tensor of {n} lanes")
-    for t in (*acc, rows, *masks.values()):
+    return a0.shape[0], a0.numel() // a0.shape[0]
+
+
+def _wave_operands(name: str, acc, rows, others) -> None:
+    """The checks a wave kernel's other operands share, then the card: `rows`
+    is (what, tensor, shape) of the int32 point rows, read in 16-byte loads;
+    `others` are (what, tensor, dtype, shape) of its index and mask tensors."""
+    what, t, shape = rows
+    if t.dtype != torch.int32 or not t.is_contiguous() or tuple(t.shape) != shape \
+            or t.data_ptr() % 16:
+        raise ValueError(f"{name}: {what} must be a contiguous, 16-byte aligned int32 "
+                         f"{shape} tensor")
+    for what, t, dtype, shape in others:
+        if t.dtype != dtype or not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {what} must be a contiguous {dtype} {shape} tensor")
+    for t in (*acc, rows[1], *(o[1] for o in others)):
         if not t.is_cuda:
             raise ValueError(f"{name}: every operand must be a CUDA tensor")
-    return L, n
 
 
-def ec_madd(acc, rows, valid, consts):
-    """Masked Jacobian += affine, IN PLACE on the three contiguous (L, *batch)
-    accumulator tensors.  rows: (n, 2L) int32, row i = [x limbs | y limbs] of
-    lane i's affine point ((0, 0) = identity: lane unchanged); valid: (n,)
-    bool, False = lane unchanged.  Returns acc."""
-    L, n = _wave_lanes("ec_madd", acc, 3, rows, 2, {"valid": valid})
-    if n:
+def _wave_geometry(name: str, acc, bounds, w: int) -> tuple:
+    """(L, nw, K+1, T) of a G1 wave: the accumulator is (L, nw, K+1, T) and
+    the per-bucket table `bounds` (nw, K+1); w T and the lane count must fit
+    the kernel's 32-bit lane arithmetic."""
+    L, lanes = _acc_lanes(name, acc, 3)
+    if acc[0].dim() != 4 or bounds.dim() != 2 or tuple(acc[0].shape[1:3]) != tuple(bounds.shape):
+        raise ValueError(f"{name}: acc must be (L, nw, K+1, T) over run bounds of (nw, K+1)")
+    nw, kp1, T = acc[0].shape[1:]
+    if not 0 <= w * T < 1 << 31 or lanes >= 1 << 31:
+        raise ValueError(f"{name}: wave {w} of {lanes} lanes is out of the kernel's range")
+    return L, nw, kp1, T
+
+
+def ec_madd(acc, table, astart, aend, w: int, consts):
+    """Mixed-add wave w of the MSM, IN PLACE on the three contiguous Jacobian
+    (L, nw, K+1, T) accumulator tensors: lane (window, b, r) adds row
+    window M_tab + astart[window, b] + wT + r of `table` where that position
+    is below aend[window, b] and b > 0.  table: (nw M_tab, 2L) int32, the
+    run-aligned signed affine rows [x | y limbs] ((0, 0) = identity: lane
+    unchanged); astart, aend: (nw, K+1) int64.  Returns acc."""
+    L, nw, kp1, T = _wave_geometry("ec_madd", acc, astart, w)
+    m_tab = table.shape[0] // max(nw, 1) if table.dim() == 2 else -1
+    _wave_operands("ec_madd", acc, ("table", table, (nw * m_tab, 2 * L)),
+                   [(what, t, torch.int64, (nw, kp1)) for what, t in
+                    (("astart", astart), ("aend", aend))])
+    if nw * kp1 * T:
         _launch("ec_madd", L, consts, acc[0].device, *(c.data_ptr() for c in acc),
-                rows.data_ptr(), valid.data_ptr(), n)
+                table.data_ptr(), astart.data_ptr(), aend.data_ptr(), m_tab, nw, kp1, T, w * T)
     return acc
 
 
-def ec_wave_add(acc, rows, neg, valid, consts):
-    """Masked complete projective G1 add with per-lane negation, IN PLACE on
-    the three contiguous (L, *batch) accumulator tensors:
-    acc <- valid ? acc + (neg ? -pt : pt) : acc.  rows: (n, 3L) int32, row i =
-    [x | y | z limbs] of lane i's point; neg, valid: (n,) bool.  Returns acc."""
-    L, n = _wave_lanes("ec_wave_add", acc, 3, rows, 3, {"neg": neg, "valid": valid})
-    if n:
+def ec_wave_add(acc, pts_em, order, sortedb, digits, bucket_start, w: int, consts):
+    """Complete-add wave w of the MSM (G1), IN PLACE on the three contiguous
+    projective (L, nw, K+1, T) accumulator tensors: lane (window, b, r)
+    takes sorted position pos = bucket_start[window, b] + wT + r and, where
+    pos < n, sortedb[window, pos] == b and b > 0, adds point
+    src = order[window, pos] of `pts_em`, negated where digits[window, src]
+    < 0.  pts_em: (n, 3L) int32, row i = [x | y | z limbs] of point i; order,
+    sortedb, digits: (nw, n) int64; bucket_start: (nw, K+1) int64.  Returns
+    acc."""
+    L, nw, kp1, T = _wave_geometry("ec_wave_add", acc, bucket_start, w)
+    n = pts_em.shape[0] if pts_em.dim() == 2 else -1
+    _wave_operands("ec_wave_add", acc, ("pts_em", pts_em, (n, 3 * L)),
+                   [(what, t, torch.int64, (nw, n)) for what, t in
+                    (("order", order), ("sortedb", sortedb), ("digits", digits))]
+                   + [("bucket_start", bucket_start, torch.int64, (nw, kp1))])
+    if nw * kp1 * T and n:
         _launch("ec_wave_add", L, consts, acc[0].device, *(c.data_ptr() for c in acc),
-                rows.data_ptr(), neg.data_ptr(), valid.data_ptr(), n)
+                pts_em.data_ptr(), order.data_ptr(), sortedb.data_ptr(), digits.data_ptr(),
+                bucket_start.data_ptr(), n, nw, kp1, T, w * T)
     return acc
 
 
@@ -485,7 +517,9 @@ def ec_wave_add_g2(acc, rows, neg, valid, consts):
     (x0, x1, y0, y1, z0, z1), updated IN PLACE; rows (n, 6L) int32, row i =
     [x0 | x1 | y0 | y1 | z0 | z1 limbs] of lane i's point; neg, valid: (n,)
     bool.  Returns acc."""
-    L, n = _wave_lanes("ec_wave_add_g2", acc, 6, rows, 6, {"neg": neg, "valid": valid})
+    L, n = _acc_lanes("ec_wave_add_g2", acc, 6)
+    _wave_operands("ec_wave_add_g2", acc, ("rows", rows, (n, 6 * L)),
+                   [("neg", neg, torch.bool, (n,)), ("valid", valid, torch.bool, (n,))])
     if n:
         ptrs = (ctypes.c_void_p * 6)(*(c.data_ptr() for c in acc))
         _launch("ec_wave_add_g2", L, consts, acc[0].device, ctypes.addressof(ptrs),

@@ -15,15 +15,17 @@ bucket lanes are re-packed as S segments of nb lanes (lane = seg*nb + digit,
 seg = position block), which keeps its runs as short as the other windows'.
 
 G1 takes the mixed-add path: affine points (sign pre-applied, runs aligned
-to T in a permuted table) are added into Jacobian accumulators by the CUDA
-kernel `ec_madd`.  The incomplete formula is made safe by starting every
-bucket lane at D = salt*G with the salt drawn from OS entropy per engine;
-the known multiple of D is subtracted after Horner, so results do not
-depend on the salt.  G2 takes the complete-add path: identity accumulators and one
-CUDA kernel per wave (`ec_wave_add_g2`: negate, add, select).
-`_msm_fused`, the form every shard of the device-sharded engines runs
-(parallel/sharded.py), takes the complete-add path for G1 too: no salt and
-no correction term, and one CUDA kernel per wave (`ec_wave_add`).  The wave loop is a Python loop; the
+to T in a permuted table) are added into Jacobian accumulators, one CUDA
+kernel a wave (`ec_madd`, which reads each lane's row from the table
+itself).  The incomplete formula is made safe by starting every bucket lane
+at D = salt*G with the salt drawn from OS entropy per engine; the known
+multiple of D is subtracted after Horner, so results do not depend on the
+salt.  G2 takes the complete-add path: identity accumulators, the wave's
+row gather, and one CUDA kernel per wave (`ec_wave_add_g2`: negate, add,
+select).  `_msm_fused`, the form every shard of the device-sharded engines
+runs (parallel/sharded.py), takes the complete-add path for G1 too: no salt
+and no correction term, and one CUDA kernel per wave that finds each lane's
+point from the prepare itself (`ec_wave_add`).  The wave loop is a Python loop; the
 number of waves is read from the device once per chunk.  Inputs above
 2^CHUNK_LOG points run as chunked prepares and waves into ONE shared
 accumulator; reduction and Horner run once at the end.
@@ -39,8 +41,8 @@ import threading
 
 import torch
 
-from .curve import (CurveOps, FqLane, ProjPoint, ec_madd, ec_wave_add, ec_wave_add_g2, leaves,
-                    pmap)
+from .curve import (CurveOps, FqLane, ProjPoint, add_wave_lanes, ec_madd, ec_wave_add,
+                    ec_wave_add_g2, leaves, pmap)
 
 
 def _signed_digits(scalar_limbs, nbits: int, c: int):
@@ -148,7 +150,7 @@ class MSM:
         digits, bucket = self._buckets(scalar_limbs, nbits, c)
         sortedb, order, counts, starts = self._sorted_runs(bucket, K)
         n_waves = counts[:, 1: K + 1].max()
-        return digits, order, sortedb, starts[:, : K + 1], n_waves
+        return digits, order, sortedb, starts[:, : K + 1].contiguous(), n_waves
 
     def _prepare_madd(self, scalar_limbs, nbits: int, c: int):
         """Mixed-add path: digit/sort plus a run-ALIGNED permuted-table
@@ -190,12 +192,9 @@ class MSM:
         scatter_idx[apos.reshape(-1)] = sidx.reshape(-1)
         return scatter_idx[:dead].reshape(nw, M_tab), astart, aend, n_waves
 
-    def _table_blocks(self, pts_em2, scatter_idx):
-        """(nw, M_tab) slot indices -> (nw*M_tab/T, T*rw) blocks of T rows."""
-        rw = pts_em2.shape[1]
-        nw, M_tab = scatter_idx.shape
-        rows = pts_em2.index_select(0, scatter_idx.reshape(-1))
-        return rows.reshape(nw * M_tab // self.T, self.T * rw)
+    def _table_rows(self, pts_em2, scatter_idx):
+        """(nw, M_tab) slot indices -> the (nw*M_tab, rw) run-aligned table."""
+        return pts_em2.index_select(0, scatter_idx.reshape(-1))
 
     def _emajor(self, points: ProjPoint):
         """(L, N) coordinate tensors -> (N, n_leaves*L) element-major copy."""
@@ -205,27 +204,16 @@ class MSM:
 
     def _wave_step(self, pts_em, digits, order, sortedb, bucket_start, w, acc):
         """Wave w of the complete-add path: add ranks [w*T, w*T+T) of every
-        bucket's run into the (nw, K+1, T) accumulator.  Lanes past their
-        run's end, bucket 0 and the top row's dead lanes read a clamped,
-        arbitrary row; `valid` keeps it out of the accumulator."""
+        bucket's run into the (nw, K+1, T) accumulator.  G1: one kernel,
+        which finds each lane's point itself (`ec_wave_add`).  G2: the
+        wave's gathers here (`add_wave_lanes`), then one kernel for the
+        negation, the add and the select."""
         ops = self.ops
-        T = self.T
-        nw, Kp1 = bucket_start.shape
-        n = sortedb.shape[1]
-        dev = sortedb.device
-        bidx = torch.arange(Kp1, device=dev)[None, :, None]
-        ranks = torch.arange(T, device=dev)[None, None, :]
-        pos = bucket_start[:, :, None] + (w * T + ranks)  # (nw, Kp1, T)
-        woff = (torch.arange(nw, device=dev) * n)[:, None, None]
-        safe = (pos.clamp(0, n - 1) + woff).reshape(-1)
-        sb = sortedb.reshape(-1)[safe].reshape(nw, Kp1, T)
-        valid = (pos < n) & (sb == bidx) & (bidx > 0)
-        src = order.reshape(-1)[safe]
+        if isinstance(ops.lane, FqLane):
+            return ec_wave_add(ops, acc, pts_em, order, sortedb, digits, bucket_start, w)
+        src, neg, valid = add_wave_lanes(order, sortedb, digits, bucket_start, w, self.T)
         rows = pts_em.index_select(0, src)  # (nw*Kp1*T, n_leaves*L)
-        dsel = digits.reshape(-1)[src + woff.expand(nw, Kp1, T).reshape(-1)] < 0
-        # negation, add and select in one pass over the gathered rows
-        wave = ec_wave_add if isinstance(ops.lane, FqLane) else ec_wave_add_g2
-        return wave(ops, acc, rows, dsel, valid.reshape(-1))
+        return ec_wave_add_g2(ops, acc, rows, neg, valid)
 
     # ------------------------------------------- phase 2': mixed-add waves
 
@@ -265,22 +253,10 @@ class MSM:
         ay = torch.cat([ay0, ayn], dim=1)
         return torch.cat([ax, ay], dim=0).t().contiguous()
 
-    def _wave_step_madd(self, tableT, M_tab, astart, aend, w, acc):
-        """One mixed-add wave against the run-ALIGNED signed table: ONE
-        gather of T-row blocks (one index per bucket) + a validity compare."""
-        T = self.T
-        nw, Kp1 = astart.shape
-        dev = astart.device
-        bidx = torch.arange(Kp1, device=dev)[None, :, None]
-        ranks = torch.arange(T, device=dev)[None, None, :]
-        pos = astart[:, :, None] + (w * T + ranks)
-        valid = (pos < aend[:, :, None]) & (bidx > 0)
-        nblkT = M_tab // T
-        idxT = ((astart + w * T) // T).clamp(0, nblkT - 1)
-        idxT = idxT + (torch.arange(nw, device=dev) * nblkT)[:, None]
-        blocks = tableT.index_select(0, idxT.reshape(-1))
-        rows = blocks.reshape(nw * Kp1 * T, -1)
-        return ec_madd(self.ops.lane.f, acc, rows, valid.reshape(-1).contiguous())
+    def _wave_step_madd(self, table, astart, aend, w, acc):
+        """One mixed-add wave against the run-ALIGNED signed table: one
+        kernel, which reads each valid lane's row itself (`ec_madd`)."""
+        return ec_madd(self.ops.lane.f, acc, table, astart, aend, w)
 
     def _jac_to_homog(self, acc: ProjPoint) -> ProjPoint:
         """Jacobian (X, Y, Z) -> homogeneous (X*Z, Y, Z^3) for the
@@ -421,11 +397,10 @@ class MSM:
             sl = scalar_limbs[:, lo:hi]
             if madd:
                 scatter_idx, astart, aend, n_waves = self._prepare_madd(sl, nbits, c)
-                tableT = self._table_blocks(self._affine_em(pts), scatter_idx)
-                M_tab = (-(-(hi - lo) // T) + K + 1) * T
+                table = self._table_rows(self._affine_em(pts), scatter_idx)
                 n_super = -(-int(n_waves.item()) // T)
                 for w in range(n_super):
-                    acc = self._wave_step_madd(tableT, M_tab, astart, aend, w, acc)
+                    acc = self._wave_step_madd(table, astart, aend, w, acc)
             else:
                 digits, order, sortedb, bucket_start, n_waves = self._prepare(sl, nbits, c)
                 pts_em = self._emajor(pts)

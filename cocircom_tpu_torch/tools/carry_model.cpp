@@ -14,12 +14,19 @@
 //   add a b          add_mod_cc(a, b)
 //   sub a b          sub_mod_cc(a, b)
 //   pminus b         p_minus(b)
-// and the kernels of ec_add.cu, ec_add_g2.cu and ec_wave_add_g2.cu, run on a grid of `blocks` blocks of
+// and the kernels of ec_add.cu, ec_add_g2.cu, ec_wave_add_g2.cu,
+// ec_wave_add.cu and ec_madd.cu, run on a grid of `blocks` blocks of
 // `threads` threads; arrays are (L, lanes) limb-major words, a broadcast
-// operand has one lane, masks one word a lane:
+// operand has one lane, masks one word a lane, index arrays (int64) one
+// decimal number an element:
 //   g1add S n pb qb blocks threads  x1 y1 z1 x2 y2 z2  -> X3 Y3 Z3
 //   g2add n pb qb blocks threads    12 arrays          -> 6 arrays
 //   g2wave n blocks threads         6 acc, rows (n x 6L), neg, valid -> 6 acc
+//   g1wave blocks threads n nw kp1 t wt    3 acc (nw kp1 t lanes), pts
+//                                   (n x 3L), order, sortedb, digits (nw x n),
+//                                   bucket_start (nw x kp1) -> 3 acc
+//   madd blocks threads m_tab nw kp1 t wt  3 acc, table (nw m_tab x 2L),
+//                                   astart, aend (nw x kp1) -> 3 acc
 #define CC_HOST_MODEL
 #define __device__
 #define __forceinline__ inline
@@ -61,6 +68,8 @@ inline bool __any_sync(unsigned, bool p) { return vote_any(p); }
 #include "ec_add.cu"
 #include "ec_add_g2.cu"
 #include "ec_wave_add_g2.cu"
+#include "ec_wave_add.cu"
+#include "ec_madd.cu"
 
 thread_local uint32_t cc::ptx::model_cf = 0;
 
@@ -111,6 +120,12 @@ static std::vector<uint32_t> read_words(int n) {
     w[i] = (uint32_t)std::stoul(s, nullptr, 16);
   }
   return w;
+}
+
+static std::vector<long long> read_i64(long long n) {
+  std::vector<long long> v(n);
+  for (long long i = 0; i < n; ++i) std::cin >> v[i];
+  return v;
 }
 
 template <int L>
@@ -216,6 +231,38 @@ static int run() {
       for (int i = 0; i < 6; ++i) a.a[i] = acc[i].data();
       run_grid(blocks, threads, [&] {
         ec_wave_add_g2_kernel<L>(a, rows.data(), neg.data(), valid.data(), n, F);
+      });
+      for (auto& o : acc) print_words(o);
+    } else if (op == "g1wave") {
+      int nw, kp1, t;
+      long long n, wt;
+      unsigned blocks, threads;
+      std::cin >> blocks >> threads >> n >> nw >> kp1 >> t >> wt;
+      const long long lanes = (long long)nw * kp1 * t;
+      std::vector<std::vector<uint32_t>> acc;
+      for (int i = 0; i < 3; ++i) acc.push_back(read_words(L * lanes));
+      std::vector<uint32_t> pts = read_words(3 * L * n);
+      std::vector<long long> order = read_i64(nw * n), sortedb = read_i64(nw * n),
+                             digits = read_i64(nw * n), start = read_i64(nw * kp1);
+      const WaveIdx q{order.data(), sortedb.data(), digits.data(), start.data(), n, kp1, t,
+                      (int)lanes, wt};
+      run_grid(blocks, threads, [&] {
+        ec_wave_add_kernel<L>(acc[0].data(), acc[1].data(), acc[2].data(), pts.data(), q, F);
+      });
+      for (auto& o : acc) print_words(o);
+    } else if (op == "madd") {
+      int nw, kp1, t;
+      long long m_tab, wt;
+      unsigned blocks, threads;
+      std::cin >> blocks >> threads >> m_tab >> nw >> kp1 >> t >> wt;
+      const long long lanes = (long long)nw * kp1 * t;
+      std::vector<std::vector<uint32_t>> acc;
+      for (int i = 0; i < 3; ++i) acc.push_back(read_words(L * lanes));
+      std::vector<uint32_t> table = read_words(2 * L * nw * m_tab);
+      std::vector<long long> astart = read_i64(nw * kp1), aend = read_i64(nw * kp1);
+      const MaddIdx q{astart.data(), aend.data(), m_tab, kp1, t, (int)lanes, wt};
+      run_grid(blocks, threads, [&] {
+        ec_madd_kernel<L>(acc[0].data(), acc[1].data(), acc[2].data(), table.data(), q, F);
       });
       for (auto& o : acc) print_words(o);
     } else if (op == "mul") {

@@ -1,14 +1,56 @@
-// The one-lane-a-thread design of the G1 and G2 adds that csrc/ec_add.cu,
-// csrc/ec_add_g2.cu and csrc/ec_wave_add_g2.cu replaced, kept as the
-// yardstick of the launch sweep (cocircom_tpu_torch/tools/launch_variants.py
-// builds this file; no path runs it): one lane a thread, the 64-bit CIOS
-// product (field.cuh `mont_mul`), blocks of 128, and the G2 add over
-// `Fq2Ops` below, whose product is not inlined.  cc_ec_wave_add_g2 is the G2
-// wave in the same design (K6's shape over Fq2Ops).  Same C entry points and
-// arguments as those three sources.
+// The one-lane-a-thread design of the curve kernels that csrc/ec_add.cu,
+// csrc/ec_add_g2.cu, csrc/ec_wave_add_g2.cu, csrc/ec_madd.cu and
+// csrc/ec_wave_add.cu replaced, kept as the yardstick of the launch sweep
+// (cocircom_tpu_torch/tools/launch_variants.py builds this file; no path
+// runs it): one lane a thread, the 64-bit CIOS product (field.cuh
+// `mont_mul`), and the G2 add over `Fq2Ops` below, whose product is not
+// inlined.  cc_ec_add, cc_ec_add_g2 and cc_ec_wave_add_g2 take the same
+// arguments as the committed sources (cc_ec_wave_add_g2 is K6's old shape
+// over Fq2Ops).  cc_ec_madd and cc_ec_wave_add are K5 and K6 as they were
+// before they read their wave's rows themselves: they take rows that the
+// wave's gather already wrote, one per lane, and per-lane masks, with
+// their old launch shapes (K5 blocks of 128; K6 blocks of 64 held to 128
+// registers at 8 limbs, blocks of 128 at 12).
 #include "curve.cuh"
 
 using namespace cc;
+
+// ------------------------------------------------------------- base field
+template <int L>
+struct FqOps {
+  typedef Fe<L> El;
+  const FieldConst<L>& F;
+  __device__ explicit FqOps(const FieldConst<L>& f) : F(f) {}
+  __device__ __forceinline__ El add(const El& a, const El& b) const { return add_mod(a, b, F); }
+  __device__ __forceinline__ El sub(const El& a, const El& b) const { return sub_mod(a, b, F); }
+  __device__ __forceinline__ El mul(const El& a, const El& b) const { return mont_mul(a, b, F); }
+  __device__ __forceinline__ El b3() const { return fe_const(F.b3); }
+};
+
+// --------------------------------------------------------------- formula
+template <class K>
+__device__ __forceinline__ void ec_add_core(const K& k, const typename K::El& x1,
+                                            const typename K::El& y1, const typename K::El& z1,
+                                            const typename K::El& x2, const typename K::El& y2,
+                                            const typename K::El& z2, typename K::El& X3,
+                                            typename K::El& Y3, typename K::El& Z3) {
+  typedef typename K::El El;
+  const El b3 = k.b3();
+  const El m_xx = k.mul(x1, x2);
+  const El m_yy = k.mul(y1, y2);
+  const El m_zz = k.mul(z1, z2);
+  const El t3 = k.sub(k.sub(k.mul(k.add(x1, y1), k.add(x2, y2)), m_xx), m_yy);  // X1Y2+X2Y1
+  const El t4 = k.sub(k.sub(k.mul(k.add(y1, z1), k.add(y2, z2)), m_yy), m_zz);  // Y1Z2+Y2Z1
+  const El xz = k.sub(k.sub(k.mul(k.add(x1, z1), k.add(x2, z2)), m_xx), m_zz);  // X1Z2+X2Z1
+  const El t0 = k.add(k.add(m_xx, m_xx), m_xx);                                  // 3 X1X2
+  const El t2 = k.mul(m_zz, b3);                                                 // b3 Z1Z2
+  const El z3p = k.add(m_yy, t2);
+  const El t1 = k.sub(m_yy, t2);
+  const El y3 = k.mul(xz, b3);                                                   // b3 (X1Z2+X2Z1)
+  X3 = k.sub(k.mul(t3, t1), k.mul(t4, y3));
+  Y3 = k.add(k.mul(t1, z3p), k.mul(y3, t0));
+  Z3 = k.add(k.mul(z3p, t4), k.mul(t0, t3));
+}
 
 // ------------------------------------------------- quadratic extension
 template <int L>
@@ -218,5 +260,107 @@ extern "C" int cc_ec_wave_add_g2(void* const* acc, const void* rows, const void*
   for (int i = 0; i < 6; ++i) a.a[i] = (uint32_t*)acc[i];
   if (limbs == 8) return launch_wave_g2<8>(a, rows, neg, valid, n, consts, stream);
   if (limbs == 12) return launch_wave_g2<12>(a, rows, neg, valid, n, consts, stream);
+  return bad_limbs();
+}
+
+// ------------------------------------------- K5 and K6 on gathered rows
+// K5: acc += row (madd-2007-bl; (0, 0) = identity) where valid; rows (n, 2L).
+template <int L>
+__global__ void ec_madd_kernel(uint32_t* __restrict__ ax, uint32_t* __restrict__ ay,
+                               uint32_t* __restrict__ az, const uint32_t* __restrict__ rows,
+                               const uint8_t* __restrict__ valid, long long n, FieldConst<L> F) {
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < n; j += step) {
+    if (valid[j] == 0) continue;
+    Fe<L> pt[2];
+    row_load<L, 2>(rows + j * (2 * L), pt);
+    const Fe<L>& x2 = pt[0];
+    const Fe<L>& y2 = pt[1];
+    if (fe_is_zero(x2) && fe_is_zero(y2)) continue;
+    const Fe<L> X1 = fe_load<L>(ax, n, j);
+    const Fe<L> Y1 = fe_load<L>(ay, n, j);
+    const Fe<L> Z1 = fe_load<L>(az, n, j);
+    const Fe<L> z1z1 = mont_mul(Z1, Z1, F);
+    const Fe<L> u2 = mont_mul(x2, z1z1, F);
+    const Fe<L> s2 = mont_mul(y2, mont_mul(Z1, z1z1, F), F);
+    const Fe<L> h = sub_mod(u2, X1, F);
+    const Fe<L> hh = mont_mul(h, h, F);
+    const Fe<L> hh2 = add_mod(hh, hh, F);
+    const Fe<L> i4 = add_mod(hh2, hh2, F);
+    const Fe<L> jj = mont_mul(h, i4, F);
+    Fe<L> rr = sub_mod(s2, Y1, F);
+    rr = add_mod(rr, rr, F);
+    const Fe<L> v = mont_mul(X1, i4, F);
+    const Fe<L> x3 = sub_mod(sub_mod(mont_mul(rr, rr, F), jj, F), add_mod(v, v, F), F);
+    const Fe<L> y1j = mont_mul(Y1, jj, F);
+    const Fe<L> y3 = sub_mod(mont_mul(rr, sub_mod(v, x3, F), F), add_mod(y1j, y1j, F), F);
+    const Fe<L> zh = add_mod(Z1, h, F);
+    const Fe<L> z3 = sub_mod(sub_mod(mont_mul(zh, zh, F), z1z1, F), hh, F);
+    fe_store(ax, n, j, x3);
+    fe_store(ay, n, j, y3);
+    fe_store(az, n, j, z3);
+  }
+}
+
+template <int L>
+static int launch_madd(void* ax, void* ay, void* az, const void* rows, const void* valid,
+                       long long n, const void* consts, void* stream) {
+  const int threads = 128;
+  ec_madd_kernel<L><<<grid_for(n, threads, 32), threads, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)ax, (uint32_t*)ay, (uint32_t*)az, (const uint32_t*)rows, (const uint8_t*)valid, n,
+      make_consts<L>(consts));
+  return launch_status();
+}
+
+extern "C" int cc_ec_madd(void* ax, void* ay, void* az, const void* rows, const void* valid,
+                          long long n, int limbs, const void* consts, void* stream) {
+  if (limbs == 8) return launch_madd<8>(ax, ay, az, rows, valid, n, consts, stream);
+  if (limbs == 12) return launch_madd<12>(ax, ay, az, rows, valid, n, consts, stream);
+  return bad_limbs();
+}
+
+// K6: acc <- valid ? acc + (neg ? -row : row) : acc; rows (n, 3L).
+template <int L>
+struct OldWaveLaunch {
+  static constexpr int threads = (L == 8) ? 64 : 128;
+  static constexpr int min_blocks = (L == 8) ? 8 : 1;
+};
+
+template <int L>
+__global__ void __launch_bounds__(OldWaveLaunch<L>::threads, OldWaveLaunch<L>::min_blocks)
+ec_wave_add_kernel(uint32_t* __restrict__ ax, uint32_t* __restrict__ ay, uint32_t* __restrict__ az,
+                   const uint32_t* __restrict__ rows, const uint8_t* __restrict__ neg,
+                   const uint8_t* __restrict__ valid, long long n, FieldConst<L> F) {
+  const FqOps<L> k(F);
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < n; j += step) {
+    if (valid[j] == 0) continue;
+    Fe<L> pt[3];
+    row_load<L, 3>(rows + j * (3 * L), pt);
+    if (neg[j] != 0) pt[1] = sub_mod(fe_zero<L>(), pt[1], F);
+    Fe<L> X3, Y3, Z3;
+    ec_add_core(k, fe_load<L>(ax, n, j), fe_load<L>(ay, n, j), fe_load<L>(az, n, j), pt[0], pt[1],
+                pt[2], X3, Y3, Z3);
+    fe_store(ax, n, j, X3);
+    fe_store(ay, n, j, Y3);
+    fe_store(az, n, j, Z3);
+  }
+}
+
+template <int L>
+static int launch_wave(void* ax, void* ay, void* az, const void* rows, const void* neg,
+                       const void* valid, long long n, const void* consts, void* stream) {
+  const int threads = OldWaveLaunch<L>::threads;
+  ec_wave_add_kernel<L><<<grid_for(n, threads, 32), threads, 0, (cudaStream_t)stream>>>(
+      (uint32_t*)ax, (uint32_t*)ay, (uint32_t*)az, (const uint32_t*)rows, (const uint8_t*)neg,
+      (const uint8_t*)valid, n, make_consts<L>(consts));
+  return launch_status();
+}
+
+extern "C" int cc_ec_wave_add(void* ax, void* ay, void* az, const void* rows, const void* neg,
+                              const void* valid, long long n, int limbs, const void* consts,
+                              void* stream) {
+  if (limbs == 8) return launch_wave<8>(ax, ay, az, rows, neg, valid, n, consts, stream);
+  if (limbs == 12) return launch_wave<12>(ax, ay, az, rows, neg, valid, n, consts, stream);
   return bad_limbs();
 }

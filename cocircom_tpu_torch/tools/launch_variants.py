@@ -3,46 +3,49 @@
 
 Run from the repository root on a machine with an NVIDIA card and nvcc:
 
-    python3 -m cocircom_tpu_torch.tools.launch_variants            # both sets
+    python3 -m cocircom_tpu_torch.tools.launch_variants            # every set
     python3 -m cocircom_tpu_torch.tools.launch_variants --only ec_add
     python3 -m cocircom_tpu_torch.tools.launch_variants --only ec_wave_add
+    python3 -m cocircom_tpu_torch.tools.launch_variants --only ec_madd
 
-Two sets of variants, each built from copies of a committed source with the
-package's own nvcc flags, all copies of a set built in parallel:
+Each set builds copies of committed sources with the package's own nvcc
+flags, each copy with named changes to the one-line launch specialisations
+at the top of its source (`committed` for none), all copies of a set in
+parallel, plus the yardstick: the one-lane-a-thread design the committed
+kernels replaced (tools/ec_add_one_lane.cu: the 64-bit CIOS product).
 
-  ec_wave_add  (K6, csrc/ec_wave_add.cu) block sizes 64, 128, 256 and caps of
-               2 to 8 blocks an SM (255 down to 96 registers a thread), timed
-               at the shape of one wave of a c = 12 MSM ((L, 22, 2049, 8)
-               lanes, 80% valid, half negated).
-  ec_add       the cooperative curve kernels, one source each: K4 `ec_add`
-               (csrc/ec_add.cu), `ec_add_g2` (csrc/ec_add_g2.cu) and
-               `ec_wave_add_g2` (csrc/ec_wave_add_g2.cu).  Each source as
-               committed, with K4's team size fixed at 1 or 3 threads a lane
-               at every lane count, and with other block sizes and register
-               caps; and as the yardstick the one-lane-a-thread design that
-               those sources replaced (tools/ec_add_one_lane.cu: the 64-bit
-               CIOS product, blocks of 128, the G2 product not inlined).
-               K4 is timed at its reduction shape (L, 22, 2048), at 1, 2,
-               1,024, 1,408 (22 x 64), 2,048, 4,096, 8,192 and 11,264
-               (22 x 512) lanes, which places the lane count where the
-               launcher switches team size; the G2 add at (L, 22, 2049, 8)
-               and at 1 and 2 lanes; the G2 wave at (L, 22, 2049, 8), 80%
-               valid, half negated.
+  ec_add       the cooperative kernels: K4 `ec_add` (csrc/ec_add.cu), with
+               its team fixed at 1 or 3 threads a lane, other block sizes and
+               register caps, at its reduction shape (L, 22, 2048) and at 1,
+               2, 1,024, 1,408, 2,048, 4,096, 8,192 and 11,264 lanes (where
+               the launcher switches team); `ec_add_g2` (csrc/ec_add_g2.cu)
+               at (L, 22, 2049, 8) and 1-2 lanes; `ec_wave_add_g2`
+               (csrc/ec_wave_add_g2.cu) at (L, 22, 2049, 8), 80% valid.
+  ec_wave_add  K6 (csrc/ec_wave_add.cu): block sizes and register caps.
+  ec_madd      K5 (csrc/ec_madd.cu): block sizes and register caps.
+               K5 and K6 are timed on the engine's own prepare of one
+               2^17-point chunk of a c = 12 MSM ((L, 22, 2049, 8) lanes):
+               its first wave alone, and every wave of the chunk in turn.
+               Beside them two yardsticks: the old kernel alone, on rows
+               the wave's gather wrote beforehand (`one_lane`), and the old
+               whole wave, its PyTorch glue, the row gather and the old
+               kernel (`one_lane+glue`); every timing is a CUDA graph, so
+               `one_lane+glue` against `committed` is what reading the rows
+               in the kernel bought on the card.
 
 Both limb counts (8: BN254, 12: BLS12-381).  Every variant runs on the same
-inputs.  The ec_add set runs one entry point at a time, each in processes of
-its own: first every variant alone (a fault takes down only its process; a
+inputs.  A set runs one entry point at a time, each in processes of its
+own: first every variant alone (a fault takes down only its process; a
 variant that faults, or whose bits differ from those most variants give, is
 reported and not timed), then all that passed in one process, in turns.
-A variant is named by its changes to the committed launch lines
-(`committed` for none).
 The script prints one JSON line per variant, limb count and shape:
-milliseconds per launch (a CUDA graph of launches timed with CUDA events;
-the variants take turns, three rounds), and per kernel instantiation the
-registers, stack and spill bytes `ptxas` reports and, where the toolkit has
-`cuobjdump`, the static count of IMAD* and of IADD3/IADD instructions (per
-thread, and per lane: times the threads that serve a lane).  Then the
-card's name and power limit.  Without a card it exits 2.
+milliseconds per run (a CUDA graph of runs timed with CUDA events; the
+variants take turns, three rounds), the kernel launches a run holds, and per
+kernel instantiation the registers, stack and spill bytes `ptxas` reports
+and, where the toolkit has `cuobjdump`, the static count of IMAD* and of
+IADD3/IADD instructions (per thread, and per lane: times the threads that
+serve a lane).  Then the card's name and power limit.  Without a card it
+exits 2.
 """
 
 from __future__ import annotations
@@ -66,16 +69,10 @@ from ..ops import kernels
 
 TOOLS = Path(__file__).resolve().parent
 
-# ---- K6: (threads a block, least blocks an SM; None = no cap)
-SHAPES = [(128, None), (64, None), (256, None), (128, 3), (128, 4), (64, 8), (256, 2), (128, 5)]
-THREADS = re.compile(r"static constexpr int threads = [^;]+;")
-BLOCKS = re.compile(r"static constexpr int min_blocks = [^;]+;")
-BOUNDS = "__launch_bounds__(WaveLaunch<L>::threads, WaveLaunch<L>::min_blocks)"
-
-# ---- the cooperative kernels: {entry point: (source, launch struct,
-# variants)}; a variant is a name and changes to the fields of the launch
-# lines of both limb counts (none: the source as committed)
-EC_ADD_SETS = {
+# ---- {entry point: (source, launch struct, variants)}; a variant is a name
+# and changes to the fields of the launch lines of both limb counts (none:
+# the source as committed)
+SETS = {
     "ec_add": ("ec_add.cu", "AddLaunch", [
         ("committed", {}), ("team1", {"team": 1, "team_small": 1}),
         ("team3", {"team": 3, "team_small": 3}), ("t64", {"threads": 64, "min_blocks": 1}),
@@ -87,19 +84,42 @@ EC_ADD_SETS = {
     "ec_wave_add_g2": ("ec_wave_add_g2.cu", "G2WaveLaunch", [
         ("committed", {}), ("t128", {"threads": 128, "min_blocks": 1}),
         ("t128_b3", {"threads": 128, "min_blocks": 3})]),
+    "ec_wave_add": ("ec_wave_add.cu", "WaveLaunch", [
+        ("committed", {}), ("t128", {"threads": 128, "min_blocks": 1}),
+        ("t64", {"threads": 64, "min_blocks": 1}), ("t256", {"threads": 256, "min_blocks": 1}),
+        ("t128_b3", {"threads": 128, "min_blocks": 3}),
+        ("t128_b4", {"threads": 128, "min_blocks": 4}),
+        ("t64_b8", {"threads": 64, "min_blocks": 8})]),
+    "ec_madd": ("ec_madd.cu", "MaddLaunch", [
+        ("committed", {}), ("t64", {"threads": 64, "min_blocks": 1}),
+        ("t256", {"threads": 256, "min_blocks": 1}),
+        ("t128_b3", {"threads": 128, "min_blocks": 3}),
+        ("t128_b4", {"threads": 128, "min_blocks": 4})]),
 }
+# the --only choices: sets of entry points
+GROUPS = {"ec_add": ("ec_add", "ec_add_g2", "ec_wave_add_g2"), "ec_wave_add": ("ec_wave_add",),
+          "ec_madd": ("ec_madd",)}
 LAUNCH_LINE = re.compile(r"template <> struct (\w+)<(8|12)> \{ static constexpr int ([^;]*); \};")
 YARDSTICK = "one_lane"
+# the old whole wave: its PyTorch glue, the row gather and the old kernel
+# (the yardstick's library); only for the whole-wave entry points
+GLUE = "one_lane+glue"
+WHOLE_WAVE = ("ec_wave_add", "ec_madd")
+# the yardstick's entry points of these kernels take rows, not the prepare
+OLD_ARGTYPES = {
+    # x y z (updated in place), rows, valid, n
+    "ec_madd": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + kernels._TAIL,
+    # x y z (updated in place), rows, neg, valid, n
+    "ec_wave_add": [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + kernels._TAIL,
+}
 
 
-def variant(src: str, threads: int, blocks) -> str:
-    out = THREADS.sub(f"static constexpr int threads = {threads};", src)
-    if blocks is None:
-        return out.replace(BOUNDS, "")
-    return BLOCKS.sub(f"static constexpr int min_blocks = {blocks};", out)
+def lib_name(name: str) -> str:
+    """The library a variant runs: the yardstick's for both yardsticks."""
+    return YARDSTICK if name.startswith(YARDSTICK) else name
 
 
-def ec_add_variant(src: str, struct: str, changes: dict) -> str:
+def edit_launch_lines(src: str, struct: str, changes: dict) -> str:
     """`src` with `changes` made to the fields of its `struct` launch lines."""
     def line(m):
         if m.group(1) != struct:
@@ -169,9 +189,12 @@ def sass_counts(lib: Path) -> dict:
     return out
 
 
-def load(lib: Path, name: str):
-    fn = getattr(ctypes.CDLL(str(lib)), f"cc_{name}")
-    fn.argtypes = kernels._ARGTYPES[name]
+def load(tmp: Path, variant_name: str, name: str):
+    """Entry point cc_<name> of a variant's library."""
+    lib = lib_name(variant_name)
+    fn = getattr(ctypes.CDLL(str(tmp / f"lib{lib}.so")), f"cc_{name}")
+    old = lib == YARDSTICK and name in OLD_ARGTYPES
+    fn.argtypes = OLD_ARGTYPES[name] if old else kernels._ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
 
@@ -198,57 +221,16 @@ def smi_line() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-# ------------------------------------------------------------- K6 variants
+# ----------------------------------------------------------------- cases
 
-def run_k6(tmp: Path) -> None:
-    from ..ops.curve import g1_ops
-
-    src = (kernels.CSRC / "ec_wave_add.cu").read_text()
-    if not (THREADS.search(src) and BLOCKS.search(src) and BOUNDS in src):
-        sys.exit("launch_variants: ec_wave_add.cu no longer has the launch shape this script edits")
-    logs = build(tmp, {f"k6_t{t}_b{b}": variant(src, t, b) for t, b in SHAPES})
-    gen = torch.Generator().manual_seed(1)
-    n = 22 * 2049 * 8
-    for curve in (BN254, BLS12_381):
-        ops = g1_ops(curve, "cuda")
-        f = ops.lane.f
-        L = f.L
-        acc = [rand_elems(f, n, gen) for _ in range(3)]
-        rows = torch.cat([rand_elems(f, n, gen) for _ in range(3)], dim=0).t().contiguous()
-        valid = (torch.rand(n, generator=gen) < 0.8).cuda()
-        neg = (torch.rand(n, generator=gen) < 0.5).cuda()
-        first = None
-        for name in logs:
-            fn = load(tmp / f"lib{name}.so", "ec_wave_add")
-            work = [c.clone() for c in acc]
-
-            def run():
-                _checked(fn, name, *(c.data_ptr() for c in work), rows.data_ptr(),
-                         neg.data_ptr(), valid.data_ptr(), n, L, ctypes.addressof(ops._kconsts),
-                         _stream())
-
-            run()
-            torch.cuda.synchronize()
-            res = torch.stack(work)
-            first = res if first is None else first
-            info = kernels.parse_ptxas(logs[name]).get(f"ec_wave_add_l{L}", {})
-            print(json.dumps({
-                "set": "ec_wave_add", "limbs": L, "variant": name,
-                "same_bits_as_first": bool(torch.equal(res, first)),
-                "ms": [time_graph(run) for _ in range(3)], **info}), flush=True)
-
-
-# --------------------------------------------------------- ec_add variants
-
-ENTRIES = ("ec_add", "ec_add_g2", "ec_wave_add_g2")
-
-
-def ec_add_cases(curve, entry: str) -> dict:
+def cases(curve, entry: str) -> dict:
     """{shape name: make} for one entry point over one curve; make(fn,
-    name) builds a launcher from a library's entry point and returns (run,
-    result).  Each shape's inputs come from a generator of its own, so any
-    process builds the same ones."""
-    from ..ops.curve import g1_ops, g2_ops
+    name) builds a launcher from variant `name`'s entry point and returns
+    (run, result, kernel launches a run).  Each shape's inputs come from a
+    generator of its own, so any process builds the same ones."""
+    from ..ops.curve import add_wave_lanes, g1_ops, g2_ops, madd_wave_rows
+    from ..ops.field import get_field
+    from ..ops.msm import MSM
 
     g1, g2 = g1_ops(curve, "cuda"), g2_ops(curve, "cuda")
     f = g1.lane.f
@@ -263,7 +245,7 @@ def ec_add_cases(curve, entry: str) -> dict:
             def run():
                 _checked(fn, name, *(t.data_ptr() for t in ins + outs), n, 0, 0, L,
                          ctypes.addressof(g1._kconsts), _stream())
-            return run, lambda: torch.stack(outs).clone()
+            return run, lambda: torch.stack(outs).clone(), 1
         return make
 
     def g2_case(n, seed):
@@ -277,7 +259,7 @@ def ec_add_cases(curve, entry: str) -> dict:
             def run(_keep=ins):   # the pointer table holds no reference to the tensors
                 _checked(fn, name, ctypes.addressof(ip), ctypes.addressof(op), n, 0, 0, L,
                          ctypes.addressof(g2._kconsts), _stream())
-            return run, lambda: torch.stack(outs).clone()
+            return run, lambda: torch.stack(outs).clone(), 1
         return make
 
     def wave_case(n, seed):
@@ -302,9 +284,97 @@ def ec_add_cases(curve, entry: str) -> dict:
                     once["done"] = True
                     once["res"] = torch.stack(work).clone()
                 return once["res"]
-            return run, result
+            return run, result, 1
         return make
 
+    chunks = {}
+
+    def chunk(kind):
+        """The engine's prepare of one 2^17-point chunk of a c = 12 MSM over
+        random scalars, and random coordinates: ("add", pts_em, order,
+        sortedb, digits, bucket_start, waves) or ("madd", table, astart,
+        aend, waves)."""
+        if kind not in chunks:
+            gen = torch.Generator().manual_seed(30)
+            npt, nbits = 1 << 17, curve.fr.bits
+            fr = get_field(curve.fr.p, curve.name + ".fr", "cuda")
+            eng = MSM(g1, c=12, t=8, scalar_bits=nbits)
+            scal = rand_elems(fr, npt, gen)
+            if kind == "add":
+                digits, order, sortedb, bstart, n_waves = eng._prepare(scal, nbits, 12)
+                pts_em = torch.cat([rand_elems(f, npt, gen) for _ in range(3)]).t().contiguous()
+                data = (pts_em, order, sortedb, digits, bstart)
+            else:
+                scatter_idx, astart, aend, n_waves = eng._prepare_madd(scal, nbits, 12)
+                rows2 = torch.cat([rand_elems(f, 2 * npt, gen) for _ in range(2)]).t().contiguous()
+                data = (eng._table_rows(rows2, scatter_idx), astart, aend)
+            chunks[kind] = (data, -(-int(n_waves.item()) // 8))
+        return chunks[kind]
+
+    def whole_wave_case(kind, every_wave):
+        """The first wave of the chunk, or every wave in turn, into one
+        accumulator.  The committed kernel takes the prepare; the yardstick
+        takes rows gathered before the run; `one_lane+glue` gathers them in
+        the run, as the old wave step did."""
+        def make(fn, name):
+            data, n_super = chunk(kind)
+            waves = range(n_super) if every_wave else range(1)
+            bounds = data[-1]
+            nw, kp1 = bounds.shape
+            nl = nw * kp1 * 8
+            gen = torch.Generator().manual_seed(31)
+            work = [rand_elems(f, nl, gen) for _ in range(3)]
+            acc = [t.data_ptr() for t in work]
+            tail = (L, ctypes.addressof(g1._kconsts))
+
+            def gathered(w):
+                """(rows, masks) of wave w as the old wave step made them."""
+                if kind == "add":
+                    src, neg, valid = add_wave_lanes(*data[1:], w, 8)
+                    return data[0].index_select(0, src), (neg, valid)
+                rows, valid = madd_wave_rows(*data, w, 8)
+                return rows, (valid,)
+
+            def old(rows, masks):
+                _checked(fn, name, *acc, rows.data_ptr(), *(m.data_ptr() for m in masks), nl,
+                         *tail, _stream())
+
+            if name == YARDSTICK:
+                pre = [gathered(w) for w in waves]
+
+                def run():
+                    for rows, masks in pre:
+                        old(rows, masks)
+            elif name == GLUE:
+                def run():
+                    for w in waves:
+                        old(*gathered(w))
+            elif kind == "add":
+                def run():
+                    for w in waves:
+                        _checked(fn, name, *acc, *(t.data_ptr() for t in data), 1 << 17, nw, kp1,
+                                 8, w * 8, *tail, _stream())
+            else:
+                m_tab = data[0].shape[0] // nw
+
+                def run():
+                    for w in waves:
+                        _checked(fn, name, *acc, *(t.data_ptr() for t in data), m_tab, nw, kp1, 8,
+                                 w * 8, *tail, _stream())
+            once = {}
+
+            def result():
+                # the first run's result: in-place updates accumulate
+                if "res" not in once:
+                    once["res"] = torch.stack(work).clone()
+                return once["res"]
+            return run, result, len(waves)
+        return make
+
+    if entry in WHOLE_WAVE:
+        kind = "add" if entry == "ec_wave_add" else "madd"
+        return {f"{entry}_l{L}_(22,2049,8)_first_wave": whole_wave_case(kind, False),
+                f"{entry}_l{L}_(22,2049,8)_every_wave_of_a_chunk": whole_wave_case(kind, True)}
     if entry == "ec_add":
         return {f"ec_add_l{L}_(22,2048)": g1_case(22 * 2048, 1),
                 **{f"ec_add_l{L}_{n}_lanes": g1_case(n, 10 + i)
@@ -324,9 +394,9 @@ def check_variant(tmp: Path, name: str, entry: str) -> None:
     corrupts a CUDA context takes only this process down."""
     digests = {}
     for curve in (BN254, BLS12_381):
-        for shape, make in ec_add_cases(curve, entry).items():
+        for shape, make in cases(curve, entry).items():
             print(json.dumps({"launching": shape}), flush=True)
-            run, result = make(load(tmp / f"lib{name}.so", entry), name)
+            run, result, _ = make(load(tmp, name, entry), name)
             run()
             torch.cuda.synchronize()
             digests[shape] = hashlib.sha256(result().cpu().numpy().tobytes()).hexdigest()[:16]
@@ -353,8 +423,8 @@ def checked_variants(tmp: Path, names, entry: str) -> list:
             if proc.returncode == 0 and '"digests"' in last:
                 digests[n] = json.loads(last)["digests"]
             else:
-                print(json.dumps({"set": "ec_add", "entry": entry, "variant": n,
-                                  "check_failed": True, "output": out[-2500:]}), flush=True)
+                print(json.dumps({"entry": entry, "variant": n, "check_failed": True,
+                                  "output": out[-2500:]}), flush=True)
     if not digests:
         return []
     keys = [json.dumps(d, sort_keys=True) for d in digests.values()]
@@ -364,45 +434,47 @@ def checked_variants(tmp: Path, names, entry: str) -> list:
         if d == want:
             good.append(n)
         else:
-            print(json.dumps({"set": "ec_add", "entry": entry, "variant": n, "check_failed": True,
+            print(json.dumps({"entry": entry, "variant": n, "check_failed": True,
                               "differs_at": [k for k in d if d[k] != want.get(k)]}), flush=True)
     return good
 
 
 def _per_lane(name: str, key: str) -> int:
     """Threads that serve a lane in kernel instantiation `key` of `name`."""
-    if name == YARDSTICK:
+    if lib_name(name) == YARDSTICK:
         return 1
     m = re.search(r"_s(\d+)$", key)
-    return int(m.group(1)) if m else 2      # K4's team size, else a pair (G2)
+    if m:
+        return int(m.group(1))          # K4's team
+    return 2 if "_g2_" in key else 1    # a pair a lane over Fq2
 
 
 def time_entry(tmp: Path, entry: str, names: list, rounds: int) -> None:
     """Child process: the variants `names` of one entry point take turns at
     each of its shapes; one line per variant and shape."""
-    info = {n: kernels.parse_ptxas((tmp / f"lib{n}.log").read_text()) for n in names}
-    sass = {n: json.loads((tmp / f"lib{n}.sass.json").read_text()) for n in names}
+    info = {n: kernels.parse_ptxas((tmp / f"lib{lib_name(n)}.log").read_text()) for n in names}
+    sass = {n: json.loads((tmp / f"lib{lib_name(n)}.sass.json").read_text()) for n in names}
     for curve in (BN254, BLS12_381):
-        for shape, make in ec_add_cases(curve, entry).items():
+        for shape, make in cases(curve, entry).items():
             L = 8 if "_l8_" in shape else 12
-            runs = {n: make(load(tmp / f"lib{n}.so", entry), n) for n in names}
+            runs = {n: make(load(tmp, n, entry), n) for n in names}
             results, times = {}, {n: [] for n in names}
-            for n, (run, result) in runs.items():
+            for n, (run, result, _) in runs.items():
                 run()
                 torch.cuda.synchronize()
                 results[n] = result()
             reps = 20 if "(22," in shape else 200
             for _ in range(rounds):
-                for n, (run, _) in runs.items():
+                for n, (run, _, _) in runs.items():
                     times[n].append(time_graph(run, reps))
             for n in names:
                 keys = [k for k in info[n]
                         if k == f"{entry}_l{L}" or k.startswith(f"{entry}_l{L}_s")]
                 print(json.dumps({
-                    "set": "ec_add", "shape": shape, "variant": n,
+                    "entry": entry, "shape": shape, "variant": n,
                     "same_bits_as": names[0], "same_bits": bool(torch.equal(results[n],
                                                                              results[names[0]])),
-                    "ms": times[n], "ms_min": min(times[n]),
+                    "launches_per_run": runs[n][2], "ms": times[n], "ms_min": min(times[n]),
                     "ptxas": {k: info[n][k] for k in keys},
                     "sass_per_lane": {k: {c: v * _per_lane(n, k)
                                           for c, v in sass[n].get(k, {}).items()}
@@ -410,17 +482,18 @@ def time_entry(tmp: Path, entry: str, names: list, rounds: int) -> None:
             del runs, results
 
 
-def run_ec_add(tmp: Path, rounds: int) -> None:
+def run_sets(tmp: Path, entries, rounds: int) -> None:
     sources = {YARDSTICK: (TOOLS / "ec_add_one_lane.cu").read_text()}
     names = {}
-    for entry, (file, struct, changes) in EC_ADD_SETS.items():
+    for entry in entries:
+        file, struct, changes = SETS[entry]
         src = (kernels.CSRC / file).read_text()
         if len([m for m in LAUNCH_LINE.finditer(src) if m.group(1) == struct]) != 2:
             sys.exit(f"launch_variants: {file} no longer has the two {struct} lines this "
                      "script edits")
-        names[entry] = [YARDSTICK]
+        names[entry] = [YARDSTICK] + ([GLUE] if entry in WHOLE_WAVE else [])
         for label, ch in changes:
-            text = ec_add_variant(src, struct, ch)
+            text = edit_launch_lines(src, struct, ch)
             if ch and text == src:
                 continue                      # the committed lines already
             sources[f"{entry}.{label}"] = text
@@ -430,28 +503,28 @@ def run_ec_add(tmp: Path, rounds: int) -> None:
         (tmp / f"lib{name}.log").write_text(log)
         sass = sass_counts(tmp / f"lib{name}.so")
         (tmp / f"lib{name}.sass.json").write_text(json.dumps(sass))
-        print(json.dumps({"set": "ec_add", "variant": name, "ptxas": kernels.parse_ptxas(log),
+        print(json.dumps({"variant": name, "ptxas": kernels.parse_ptxas(log),
                           "sass_per_thread": sass}), flush=True)
     # one entry point at a time, each in processes of its own: a kernel of
     # one entry point never runs before another's in the same process
-    for entry in EC_ADD_SETS:
+    for entry in entries:
         good = checked_variants(tmp, names[entry], entry)
         if not good:
-            print(json.dumps({"set": "ec_add", "entry": entry, "no_variant_passed": True}))
+            print(json.dumps({"entry": entry, "no_variant_passed": True}))
             continue
         proc = _child(["--time", entry, "--names", ",".join(good), "--dir", str(tmp),
                        "--rounds", str(rounds)])
         out, _ = proc.communicate()
         print(out.strip(), flush=True)
         if proc.returncode != 0:
-            print(json.dumps({"set": "ec_add", "entry": entry, "timing_failed": True}))
+            print(json.dumps({"entry": entry, "timing_failed": True}))
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("ec_wave_add", "ec_add"), default=None)
+    ap.add_argument("--only", choices=tuple(GROUPS), default=None)
     ap.add_argument("--rounds", type=int, default=3)
-    # child modes of run_ec_add
+    # child modes of run_sets
     ap.add_argument("--check", help=argparse.SUPPRESS)
     ap.add_argument("--time", help=argparse.SUPPRESS)
     ap.add_argument("--entry", help=argparse.SUPPRESS)
@@ -467,11 +540,9 @@ def main() -> None:
     if args.time:
         time_entry(Path(args.dir), args.time, args.names.split(","), args.rounds)
         return
+    entries = GROUPS[args.only] if args.only else tuple(SETS)
     with tempfile.TemporaryDirectory() as tmp:
-        if args.only in (None, "ec_add"):
-            run_ec_add(Path(tmp), args.rounds)
-        if args.only in (None, "ec_wave_add"):
-            run_k6(Path(tmp))
+        run_sets(Path(tmp), entries, args.rounds)
     print(smi_line(), flush=True)
 
 

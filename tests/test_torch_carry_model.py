@@ -1,15 +1,16 @@
 """The carry-chain arithmetic and the cooperative curve kernels of the CUDA
 sources, run on the CPU through their host model
-(cocircom_tpu_torch/tools/carry_model.cpp: csrc/field.cuh, csrc/curve.cuh,
-csrc/ec_add.cu, csrc/ec_add_g2.cu and csrc/ec_wave_add_g2.cu compiled with g++, each
-PTX carry instruction emulated, each warp run as 32 fibers of one host
-thread that meet at every shuffle).
+(cocircom_tpu_torch/tools/carry_model.cpp: csrc/field.cuh, csrc/curve.cuh and
+the curve kernels' sources compiled with g++, each PTX carry instruction
+emulated, each warp run as 32 fibers of one host thread that meet at every
+shuffle).
 
 Field operations are held to Python integers (random and edge operands,
 both limb counts, the four fields of the two curves); the kernels `ec_add`
-(teams of 1 and 3 threads a lane), `ec_add_g2` (a pair a lane) and
-`ec_wave_add_g2` to their plain PyTorch versions, bit for bit, with edge
-lanes, broadcast operands, tails and a grid that strides.  This checks the
+(teams of 1 and 3 threads a lane), `ec_add_g2` (a pair a lane),
+`ec_wave_add_g2`, and the whole-wave kernels `ec_wave_add` and `ec_madd` on
+a small MSM's prepare, to their plain PyTorch versions, bit
+for bit, with edge lanes, broadcast operands, tails and a grid that strides.  This checks the
 sources' arithmetic and lane logic, not the compiler of the card: the card
 checks are chip_smoke.py's.
 """
@@ -24,8 +25,10 @@ import pytest
 import torch
 
 from cocircom_tpu_torch.fields.params import BLS12_381, BN254
-from cocircom_tpu_torch.ops.curve import (ProjPoint, ec_add_g2_plain, ec_add_plain,
-                                          ec_wave_add_g2_plain, g1_ops, g2_ops, leaves, pmap)
+from cocircom_tpu_torch.ops.curve import (ProjPoint, add_wave_lanes, add_wave_plain,
+                                          ec_add_g2_plain, ec_add_plain, ec_wave_add_g2_plain,
+                                          g1_ops, g2_ops, leaves, madd_wave_plain, pmap)
+from cocircom_tpu_torch.ops.msm import MSM
 
 ROOT = Path(__file__).resolve().parent.parent
 CSRC = ROOT / "cocircom_tpu_torch" / "csrc"
@@ -193,3 +196,62 @@ def test_cooperative_kernels_match_plain_versions(model, curve):
     for j in range(0, len(lines), 6):
         for g, w in zip(lines[j:j + 6], want):
             assert torch.equal(_limbs(g, L), w), j // 6
+    # ---- K6 ec_wave_add and K5 ec_madd: the first and the last wave of a
+    # small MSM's prepare (37 points, c = 4, 16-bit scalars, T = 2: 5 windows
+    # x 9 bucket lanes x 2 ranks = 90 lanes, a tail of a warp); coordinates
+    # are random field elements, edge lanes set by hand
+    g1 = g1_ops(curve, "cpu")
+    consts = list(g1._kconsts)
+    eng = MSM(g1, c=4, t=2)
+    n, T = 37, 2
+    scal = torch.from_numpy(rng.integers(0, 1 << 16, (1, n)).astype(np.int32))
+    scal[0, 3] = 0
+    digits, order, sortedb, bstart, n_waves = eng._prepare(scal, 16, 4)
+    nw, kp1 = bstart.shape
+    lanes = nw * kp1 * T
+    pts_em = torch.cat([_rand(f, n, rng) for _ in range(3)], dim=0).t().contiguous()
+    pts_em[int(order[0, -1])] = 0      # an all-zero row, negated where its digit is
+    ints = lambda *ts: " ".join(" ".join(map(str, t.reshape(-1).tolist())) for t in ts)  # noqa: E731
+    last = -(-int(n_waves) // T) - 1
+    for w in (0, last):
+        acc = [_rand(f, lanes, rng) for _ in range(3)]
+        src, neg, valid = add_wave_lanes(order, sortedb, digits, bstart, w, T)
+        live = valid.nonzero().flatten().tolist()
+        x2, y2, z2 = (pts_em[src, k * L:(k + 1) * L].t() for k in range(3))
+        y2 = torch.where(neg[None], f.neg(y2), y2)              # the point each lane adds
+        for i, c in enumerate((zero[:, :1], one[:, :1], zero[:, :1])):
+            acc[i][:, live[:2]] = c                             # identity accumulator
+        for k, j in enumerate(live[2:6]):                      # doubling, inverse
+            acc[0][:, j], acc[2][:, j] = x2[:, j], z2[:, j]
+            acc[1][:, j] = y2[:, j] if k < 2 else f.neg(y2[:, j:j + 1])[:, 0]
+        accp = ProjPoint(*(a.reshape(L, nw, kp1, T) for a in acc))
+        want = add_wave_plain(g1, accp, pts_em, order, sortedb, digits, bstart, w)
+        body = "".join(f"g1wave {b} {t} {n} {nw} {kp1} {T} {w * T} "
+                       + " ".join(_hex(a) for a in acc + [pts_em]) + " "
+                       + ints(order, sortedb, digits, bstart) + "\n"
+                       for b, t in (_shape_for(lanes, 128, 32), (1, 32)))
+        lines = _run(model, L, consts, body)
+        assert len(lines) == 6
+        for j in range(0, len(lines), 3):
+            for g, wnt in zip(lines[j:j + 3], want):
+                assert torch.equal(_limbs(g, L), wnt.reshape(L, -1)), ("g1wave", w, j // 3)
+        assert not valid.all() and torch.equal(want.x.reshape(L, -1)[:, ~valid], acc[0][:, ~valid])
+
+    scatter_idx, astart, aend, n_waves = eng._prepare_madd(scal, 16, 4)
+    m_tab = scatter_idx.shape[1]
+    rows2 = torch.cat([_rand(f, 2 * n, rng) for _ in range(2)], dim=0).t().contiguous()
+    rows2[[2, n + 2]] = 0                                          # (0, 0): the identity
+    table = eng._table_rows(rows2, scatter_idx)
+    last = -(-int(n_waves) // T) - 1
+    for w in (0, last):
+        acc = [_rand(f, lanes, rng) for _ in range(3)]
+        accp = ProjPoint(*(a.reshape(L, nw, kp1, T) for a in acc))
+        want = madd_wave_plain(f, accp, table, astart, aend, w)
+        body = "".join(f"madd {b} {t} {m_tab} {nw} {kp1} {T} {w * T} "
+                       + " ".join(_hex(a) for a in acc + [table]) + " " + ints(astart, aend) + "\n"
+                       for b, t in (_shape_for(lanes, 128, 32), (1, 32)))
+        lines = _run(model, L, consts, body)
+        assert len(lines) == 6
+        for j in range(0, len(lines), 3):
+            for g, wnt in zip(lines[j:j + 3], want):
+                assert torch.equal(_limbs(g, L), wnt.reshape(L, -1)), ("madd", w, j // 3)

@@ -3,11 +3,15 @@ versions), tolerance 0 on the kernels' formulas, affine decode elsewhere.
 
 The JAX side runs `ec_add_pallas` / `ec_madd_pallas` in interpret mode; the
 port runs `ec_add_plain` / `ec_madd_plain` on the CPU.  Both transcribe the
-same formulas, so even the projective coordinates agree bit for bit.
+same formulas, so even the projective coordinates agree bit for bit.  One
+whole mixed-add wave of a small MSM goes through the JAX package's
+`MSM._wave_step_madd` (its Pallas kernel in interpret mode) and the port's
+`ec_madd` (on the CPU its plain version `madd_wave_plain`).
 """
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from cocircom_tpu.fields.ec_host import ec_add, ec_mul
@@ -15,11 +19,15 @@ from cocircom_tpu.fields.params import BN254
 from cocircom_tpu.ops.curve import ProjPoint as RefPoint
 from cocircom_tpu.ops.curve import g1_ops as ref_g1_ops
 from cocircom_tpu.ops.curve import g2_ops as ref_g2_ops
+from cocircom_tpu.ops.field import get_field as ref_get_field
+from cocircom_tpu.ops.msm import MSM as RefMSM
 from cocircom_tpu.ops.pallas_curve import ec_add_pallas, ec_madd_pallas
 from cocircom_tpu.pairing.tower import Tower
 from cocircom_tpu_torch import convert
 from cocircom_tpu_torch.fields.params import BN254 as PBN254
-from cocircom_tpu_torch.ops.curve import ProjPoint, ec_madd_plain, g1_ops, g2_ops
+from cocircom_tpu_torch.ops.curve import ProjPoint, ec_madd, ec_madd_plain, g1_ops, g2_ops
+from cocircom_tpu_torch.ops.field import get_field
+from cocircom_tpu_torch.ops.msm import MSM
 from torch_port_util import same
 
 R = BN254.fr.p
@@ -85,6 +93,58 @@ def test_ec_madd_plain_matches_pallas_bitwise():
         for g, a in zip(got, acc):
             assert same(g[:, i], np.asarray(a)[:, i])
     assert rf.L == 16
+
+
+@pytest.mark.parametrize("wave", [0, -1], ids=["first", "last"])
+def test_mixed_add_wave_matches_reference_wave_step(monkeypatch, wave):
+    """One whole wave, `MSM._wave_step_madd` of both packages on their own
+    run-aligned tables (40 points, 16-bit scalars, c = 4, T = 2: 5 windows x
+    9 bucket lanes x 2 ranks), from one Jacobian accumulator, with an
+    identity (0, 0) row.  The JAX side's table is unpacked (its
+    COCIRCOM_MSM_PACK=0 form, the one the test above runs its kernel in), so
+    the two share one interpret-mode compile."""
+    curve, C, T, NBITS = BN254, 4, 2, 16
+    monkeypatch.setattr(RefMSM, "PACK", False)
+    rng = np.random.default_rng(90)
+    pts_host = [h1(int(k)) for k in rng.integers(1, 1 << 14, size=40)]
+    sc = [int(v) for v in rng.integers(0, 1 << NBITS, size=40)]
+    sc[5] = 0
+    pool = [h1(int(k)) for k in rng.integers(1, 1 << 14, size=23)]
+    pts_host[17] = None                                    # affine (0, 0): lane untouched
+    ops = g1_ops(PBN254, "cpu")
+    f = ops.lane.f
+    fr = get_field(curve.fr.p, curve.name + ".fr", device="cpu")
+    eng = MSM(ops, c=C, t=T, scalar_bits=NBITS)
+    scatter_idx, astart, aend, n_waves = eng._prepare_madd(fr.to_limbs(sc), NBITS, C)
+    nw, kp1 = astart.shape
+    w = 0 if wave == 0 else -(-int(n_waves) // T) - 1
+    lanes = nw * kp1 * T
+    acc_host = [pool[j % len(pool)] for j in range(lanes)]
+
+    rops = ref_g1_ops(curve)
+    rfr = ref_get_field(curve.fr.p, curve.name + ".fr")
+    racc = rops.encode_points(acc_host)                    # z = 1: Jacobian as well
+    racc = RefPoint(*(c.reshape((c.shape[0], nw, kp1, T)) for c in racc))
+    rpts = rops.encode_points(pts_host)
+    reng = RefMSM(rops, C, T, NBITS)
+    rscatter, rastart, raend, rn = reng._prepare_madd(jnp.asarray(rfr.to_limbs(sc)),
+                                                      NBITS, C)
+    assert int(rn) == int(n_waves)
+    assert np.array_equal(np.asarray(rastart), astart.numpy())
+    assert np.array_equal(np.asarray(raend), aend.numpy())
+    M_tab = scatter_idx.shape[1]
+    tableT = reng._table_blocks(reng._affine_em(rpts), rscatter)
+    ref = reng._wave_step_madd(tableT, M_tab, rastart, raend, w, racc, True)
+
+    acc = _to_port(racc)
+    table = eng._table_rows(eng._affine_em(_to_port(rpts)), scatter_idx)
+    got = ec_madd(f, acc, table, astart, aend, w)
+    pos = astart[:, :, None] + w * T + torch.arange(T)
+    valid = ((pos < aend[:, :, None]) & (torch.arange(kp1) > 0)[None, :, None]).reshape(-1)
+    assert valid.any() and (~valid).any()
+    for g, r, a in zip(got, ref, acc):
+        assert same(g, np.asarray(r))
+        assert torch.equal(g.reshape(f.L, -1)[:, ~valid], a.reshape(f.L, -1)[:, ~valid])
 
 
 def test_scalar_mul_sum_suffix_sums_match_host():

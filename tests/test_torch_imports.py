@@ -109,9 +109,15 @@ def test_kernel_loader_raises_without_a_card_instead_of_falling_back():
     a12 = torch.zeros((12, 4), dtype=torch.int32)
     rows12 = torch.zeros((4, 72), dtype=torch.int32)
     mask = torch.zeros(4, dtype=torch.bool)
+    acc12 = torch.zeros((12, 2, 3, 2), dtype=torch.int32)      # (L, nw, K + 1, T)
+    idx = torch.zeros((2, 4), dtype=torch.int64)                 # (nw, n)
+    bounds = torch.zeros((2, 3), dtype=torch.int64)              # (nw, K + 1)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        kernels.ec_wave_add((a12, a12, a12), torch.zeros((4, 36), dtype=torch.int32), mask, mask,
-                            consts)
+        kernels.ec_wave_add((acc12,) * 3, torch.zeros((4, 36), dtype=torch.int32), idx, idx, idx,
+                            bounds, 0, consts)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.ec_madd((acc12,) * 3, torch.zeros((2 * 8, 24), dtype=torch.int32), bounds,
+                        bounds, 0, consts)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.ec_wave_add_g2((a12,) * 6, rows12, mask, mask, consts)
     with pytest.raises(ValueError, match="rows must be"):

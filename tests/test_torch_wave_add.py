@@ -2,13 +2,17 @@
 (`ec_wave_add`) and the complete-add MSM that runs it (`MSM._msm_fused`).
 
 The JAX side runs `ec_wave_add_pallas` in interpret mode, as its own tests
-do on the CPU; the port runs `ec_wave_add_plain` (the CUDA kernel's plain
-version) through the wrapper, which takes it because the tensors lie on the
-CPU.  Inputs are made from a seed with numpy; points are compared by affine
-decode, untouched lanes bit for bit.  Tolerance 0.  The 12-limb case is in
-test_torch_bls12_381.py.
+do on the CPU; the port runs `ec_wave_add_plain`, the row-level part of the
+CUDA kernel's plain version, and the whole wave through the kernel's wrapper
+`ec_wave_add`, which takes its plain version `add_wave_plain` because the
+tensors lie on the CPU, against the JAX package's `MSM._wave_step` from the
+same points, scalars and accumulator, each package running its own prepare.
+Inputs are made from a seed with numpy; points are compared by affine
+decode, untouched lanes bit for bit.  Tolerance 0.  The 12-limb row-level
+case is in test_torch_bls12_381.py.
 """
 
+import functools
 import random
 
 import jax
@@ -17,8 +21,9 @@ import numpy as np
 import pytest
 import torch
 
+import cocircom_tpu.ops.pallas_curve as ref_pallas_curve
 from cocircom_tpu.fields.ec_host import ec_mul
-from cocircom_tpu.fields.params import BN254
+from cocircom_tpu.fields.params import BLS12_381, BN254
 from cocircom_tpu.ops.curve import ProjPoint as RefProjPoint
 from cocircom_tpu.ops.curve import g1_ops as ref_g1_ops
 from cocircom_tpu.ops.field import get_field as ref_get_field
@@ -26,10 +31,13 @@ from cocircom_tpu.ops.msm import MSM as RefMSM
 from cocircom_tpu.ops.pallas_curve import ec_wave_add_pallas
 from cocircom_tpu.pairing.tower import Tower
 from cocircom_tpu_torch.fields.params import curve_by_name
-from cocircom_tpu_torch.ops.curve import ProjPoint, ec_wave_add, ec_wave_add_plain, g1_ops, pmap
+from cocircom_tpu_torch.ops.curve import (ProjPoint, add_wave_lanes, ec_wave_add,
+                                          ec_wave_add_plain, g1_ops, pmap)
 from cocircom_tpu_torch.ops.field import get_field
 from cocircom_tpu_torch.ops.msm import MSM
 from torch_port_util import same, to_port
+
+WAVE_N, WAVE_C, WAVE_T, WAVE_BITS = 40, 4, 2, 16
 
 
 def _host_points(curve, ks):
@@ -66,6 +74,29 @@ def _wave_case(curve, n, seed):
     return ka, kp, neg, valid, 5
 
 
+def _neg(curve, p):
+    return None if p is None else (p[0], (-p[1]) % curve.fq.p)
+
+
+def _compare(L, got, ref, acc_in, valid):
+    """Every lane equal after the repack; masked lanes left as they were."""
+    for g, r, a in zip(got, ref, acc_in):
+        assert same(g, np.asarray(r))
+        assert torch.equal(g.reshape(L, -1)[:, ~valid], a.reshape(L, -1)[:, ~valid])
+
+
+def _wave_inputs(curve, seed):
+    """40 points (host), 16-bit scalars and a pool of accumulator points for
+    one wave of a small MSM: c = 4, T = 2, 5 windows (the top one packed) x 9
+    bucket lanes x 2 ranks = 90 lanes."""
+    rng = np.random.default_rng(seed)
+    pts = _host_points(curve, rng.integers(1, 1 << 14, size=WAVE_N))
+    sc = [int(v) for v in rng.integers(0, 1 << WAVE_BITS, size=WAVE_N)]
+    sc[5] = 0
+    pool = _host_points(curve, rng.integers(1, 1 << 14, size=23))
+    return pts, sc, pool
+
+
 @pytest.mark.parametrize("batch", [(16,), (2, 3, 4)], ids=["flat", "multidim"])
 def test_wave_add_plain_matches_pallas_interpret(batch):
     curve = BN254
@@ -90,9 +121,7 @@ def test_wave_add_plain_matches_pallas_interpret(batch):
     rows = torch.cat([to_port(np.asarray(c)) for c in rpt], dim=0).t().contiguous()
     assert rows.shape == (n, 3 * f.L)
     tneg, tvalid = torch.from_numpy(neg), torch.from_numpy(valid)
-    got = ec_wave_add(ops, acc, rows, tneg, tvalid)
-    again = ec_wave_add_plain(f, ops._b3_mont, acc, rows, tneg, tvalid)
-    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    got = ec_wave_add_plain(f, ops._b3_mont, acc, rows, tneg, tvalid)
     assert got.x.shape == (f.L,) + batch
     flat = ProjPoint(*(c.reshape(f.L, n) for c in got))
     assert ops.decode_points(flat) == ref_dec
@@ -108,6 +137,65 @@ def test_wave_add_plain_matches_pallas_interpret(batch):
         assert torch.equal(g[:, keep], a.reshape(f.L, n)[:, keep])   # masked lanes: untouched
         # same formula on both sides: the projective limbs agree too
         assert same(g, np.asarray(r).reshape(r.shape[0], n))
+
+
+@pytest.mark.parametrize("curve,wave", [(BN254, 0), (BN254, -1), (BLS12_381, 0)],
+                         ids=["bn254_first", "bn254_last", "bls12_381_first"])
+def test_whole_wave_matches_reference_wave_step(monkeypatch, curve, wave):
+    """One whole wave, `MSM._wave_step` (G1) of both packages, with edge
+    lanes: identity accumulators, doubling, inverse points, a point at
+    infinity in the table, masked lanes and clamped positions past the
+    chunk's end.  Over BLS12-381 the JAX package's wave step takes its XLA
+    composition (negate, add, select), which its own tests hold equal to
+    its kernel; over BN254 its Pallas kernel in interpret mode (the same
+    padded shapes as the test above, so the compile is shared)."""
+    pts_host, sc, pool = _wave_inputs(curve, 80 + curve.fq.p % 7)
+    pcurve = curve_by_name(curve.name)
+    ops = g1_ops(pcurve, "cpu")
+    f = ops.lane.f
+    fr = get_field(curve.fr.p, curve.name + ".fr", device="cpu")
+    pts_host[11] = None                                    # the identity in the table
+    eng = MSM(ops, c=WAVE_C, t=WAVE_T, scalar_bits=WAVE_BITS)
+    digits, order, sortedb, bstart, n_waves = eng._prepare(fr.to_limbs(sc), WAVE_BITS, WAVE_C)
+    nw, kp1 = bstart.shape
+    w = 0 if wave == 0 else -(-int(n_waves) // WAVE_T) - 1
+    src, neg, valid = add_wave_lanes(order, sortedb, digits, bstart, w, WAVE_T)
+    lanes = nw * kp1 * WAVE_T
+    acc_host = [pool[j % len(pool)] for j in range(lanes)]
+    live = valid.nonzero().flatten().tolist()
+    edges = live[:6] if wave == 0 else []
+    for k, j in enumerate(edges):
+        p = pts_host[int(src[j])]
+        added = _neg(curve, p) if neg[j] else p
+        acc_host[j] = [None, None, added, added, _neg(curve, added), _neg(curve, added)][k]
+    assert (~valid).any() and live and (wave != 0 or len(edges) == 6)
+
+    rops = ref_g1_ops(curve)
+    rfr = ref_get_field(curve.fr.p, curve.name + ".fr")
+    racc = rops.encode_points(acc_host)
+    racc = RefProjPoint(*(c.reshape((c.shape[0], nw, kp1, WAVE_T)) for c in racc))
+    rpts = rops.encode_points(pts_host)
+    reng = RefMSM(rops, WAVE_C, WAVE_T, WAVE_BITS)
+    rdig, rorder, rsorted, rstart, _, rn = reng._prepare(jnp.asarray(rfr.to_limbs(sc)),
+                                                         WAVE_BITS, WAVE_C)
+    assert int(rn) == int(n_waves)
+    if curve is BN254:
+        monkeypatch.setattr(type(rops.lane.f), "_pallas_ok", lambda self, a, b: True)
+        monkeypatch.setattr(ref_pallas_curve, "ec_wave_add_pallas",
+                            functools.partial(ref_pallas_curve.ec_wave_add_pallas, interpret=True))
+    ref = reng._wave_step(reng._emajor(rpts), jax.tree.structure(rpts), rdig, rorder, rsorted,
+                          rstart, w, racc)
+
+    acc = ProjPoint(*(to_port(np.asarray(c)) for c in racc))
+    pts_em = eng._emajor(ProjPoint(*(to_port(np.asarray(c)) for c in rpts)))
+    got = ec_wave_add(ops, acc, pts_em, order, sortedb, digits, bstart, w)
+    assert got.x.shape == (f.L, nw, kp1, WAVE_T)
+    _compare(f.L, got, ref, acc, valid)
+    if edges:
+        dec = ops.decode_points(ProjPoint(*(c.reshape(f.L, -1)[:, edges] for c in got)))
+        assert dec[:2] == [_neg(curve, pts_host[int(src[j])]) if neg[j]
+                           else pts_host[int(src[j])] for j in edges[:2]]   # identity + P = P
+        assert dec[4:] == [None, None]                                      # P + (-P)
 
 
 def test_negation_of_a_zero_y_is_zero():
