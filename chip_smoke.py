@@ -24,7 +24,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  store) at (L, 1024, 1024) with ragged column counts, and
                  whole 2^20 transforms through the engine (two launches each,
                  held to the plain decomposition and to the per-stage
-                 network).  Once over
+                 network), and the three level shapes of a 2^22 transform
+                 (1024 points with V = 4096 and a factor table, 1024 with
+                 V = 4 and B = 1024, 4 over 2^20 columns).  Once over
                  BN254 (8 limbs) and once over BLS12-381 (the 12-limb builds
                  over Fq, and the 8-limb NTT kernels with BLS12-381 Fr's
                  constants)
@@ -50,12 +52,41 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  G2 MSM equal to the local engine's and to the known discrete
                  log; a sharded 2^20 NTT and iNTT equal to the local
                  engine's bit for bit
+  prove_shamir   3-party Shamir co-Groth16 (t = 1): prove_small's chain through
+                 the setup (verified, the three proofs equal, a changed
+                 public input refused), then prove_full's synthetic zkey with
+                 its REP3 shares translated to Shamir (translate_rep3_to_shamir):
+                 the translated witness w and a 2^20 product w * roll(w)
+                 opened and held to the REP3-opened witness; proofs equal and
+                 on curve, the G2 waves through `ec_wave_add_g2`; wall and
+                 party 0's three spans
   prove_bls      the hand-built circuit over BLS12-381 through groth16_setup
                  and the loader: a 3-party REP3 proof with one-device
                  drivers and one with sharded drivers; the pairing verifier
                  accepts both and refuses a changed public input; one G1 MSM
                  through each driver's engine, equal, each wave one launch of
                  its 12-limb wave kernel
+  plonk_small    the port's plonk_setup on a chain with one two-term side (one
+                 addition) over BN254 (200 gates, domain 256): a Plain, a REP3
+                 and a Shamir co-PLONK proof, each accepted by verify_plonk
+                 and refused with a changed public input, each transform one
+                 `ntt_butterfly` launch; with deterministic blinding
+                 (COCIRCOM_INSECURE_DETERMINISTIC=1 for those calls only) the
+                 three proofs' JSON byte-equal; the same over BLS12-381 at
+                 100 gates, Plain and REP3
+  plonk_full     a PLONK key of a 2^20-gate multiplier chain built on the card
+                 with a real tau from a seed (p_tau by a batched scalar
+                 multiplication, selectors and sigma from the gate layout and
+                 the copy cycles, iNTT, NTT on the 2^22 extended domain,
+                 commitments by the MSM); a 3-party REP3 proof cold and warm
+                 and a Shamir one, each accepted by verify_plonk; each 2^22
+                 transform three `ntt_columns` launches and nothing else,
+                 one each way held to the plain version of its levels, and
+                 one `mont_mul` at round 3's widest product (8, 2^27) to the
+                 plain version;
+                 mont_mul, ntt_columns, ec_add and ec_madd launched; walls,
+                 party 0's five round spans, peak device memory, the key's
+                 build seconds, launches per kernel
   graft          graft_entry.entry() and graft_entry.dryrun_multichip(2)
 The launch counts are set to 0 just before each phase's first 3-party proof
 and read just after it, so they hold the proving paths alone; a line
@@ -72,8 +103,8 @@ Options (for shorter measurement runs):
                     torch.profiler, which prints for each the card's busy
                     share of the wall time, the device time by kernel and
                     the NTT kernels' device time
-  --full-log N      size of prove_full and prove_sharded (default 20; never
-                    below 18)
+  --full-log N      size of prove_full, prove_sharded and prove_shamir (default
+                    20; never below 18)
 
 Integer peak used for the bound: the card's table gives 67 TFLOP/s float32
 outside the tensor cores, i.e. 33.5e12 fused multiply-adds a second on 128
@@ -99,11 +130,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import threading
 import time
 
+import numpy as np
 import torch
 
 MEM_RATE = 3.35e12
@@ -111,9 +144,11 @@ INT_MAD_RATE = 16.75e12
 
 SMALL_MULS = 300  # constraints of prove_small's multiplier chain
 BLS_MULS = 100    # constraints of prove_bls's multiplier chain
+PLONK_SMALL_MULS = 200  # chain gates of plonk_small over BN254 (domain 256)
+PLONK_LOG = 20          # gates (log2) of plonk_full's chain
 
 ALL_PHASES = ("build", "device", "kernels", "prove_small", "prove_full", "prove_sharded",
-              "prove_bls", "graft")
+              "prove_shamir", "prove_bls", "plonk_small", "plonk_full", "graft")
 OPTIONAL_PHASES = ("profile",)
 
 
@@ -155,11 +190,54 @@ def time_cuda(fn, reps: int) -> float:
 
 
 def rand_field(f, n_shape, gen: torch.Generator):
-    """Uniform canonical Montgomery elements made on the CPU from `gen`."""
+    """Uniform canonical Montgomery elements made from `gen`, on its device."""
     shape = (f.L,) + tuple(n_shape)
-    raw = torch.randint(0, 1 << 32, shape, generator=gen, dtype=torch.int64)
+    raw = torch.randint(0, 1 << 32, shape, generator=gen, dtype=torch.int64, device=gen.device)
     raw[f.L - 1] &= (1 << (f.bits - 32 * (f.L - 1))) - 1
     return f._cond_sub_p(raw.to(torch.int32).to(f.device))
+
+
+def columns_plain(f, x, tw, post=None, transpose: bool = False, piece: int = 1 << 20):
+    """ntt_columns_plain of the whole of x, computed over pieces of at most
+    `piece` elements: ranges of columns, or with a factor table ranges of v
+    with all their B columns (the plain version's temporaries are some
+    thousand bytes an element)."""
+    from cocircom_tpu_torch.ops.ntt import ntt_columns_plain
+
+    L, M, cols = x.shape
+    if post is None:
+        step = max(1, piece // M)
+        y = torch.cat([ntt_columns_plain(f, x[:, :, c:c + step], tw)
+                       for c in range(0, cols, step)], dim=2)
+        return y.reshape(L, 1, M * cols) if transpose else y
+    V = post.shape[2]
+    B = cols // V
+    step = max(1, piece // (M * B))
+    return torch.cat([ntt_columns_plain(f, x[:, :, v * B:(v + step) * B], tw,
+                                        post[:, :, v:v + step], transpose)
+                      for v in range(0, V, step)], dim=1 if transpose else 2)
+
+
+def plain_transform(eng, a, inverse: bool):
+    """The NTT engine's transform of (L, n) `a`, n above one ntt_columns
+    call, from the plain version of each of its levels: the same four-step
+    recursion, twiddles and factor tables (the 1/n of an inverse in the top
+    table)."""
+    L, n = a.shape
+    logn = n.bit_length() - 1
+    assert logn > eng.KMAX
+
+    def level(x, logm, scale):
+        if logm <= eng.KMAX:
+            return columns_plain(eng.f, x, eng._twiddles(logm, inverse))
+        B = x.shape[2]
+        logu = min(eng.KMAX, logm - 1)
+        U, V = 1 << logu, 1 << (logm - logu)
+        y = columns_plain(eng.f, x.reshape(L, U, V * B), eng._twiddles(logu, inverse),
+                          eng._fourstep_table(logm, logu, inverse, scale), transpose=True)
+        return level(y, logm - logu, None).reshape(L, V * U, B)
+
+    return level(a[:, :, None], logn, logn if inverse else None).reshape(L, n)
 
 
 def bound(bytes_moved: float, mads: float):
@@ -213,21 +291,18 @@ def on_curve(curve, proof) -> bool:
     return bool(ok)
 
 
-def prove_rep3(curve, zkey, shares, device, traced: bool, devices=None):
-    """Three party threads over the in-process network; returns
-    (proofs, wall seconds, per-span seconds of party 0).  With `devices` the
-    parties' drivers are built with that list (the sharded engines)."""
-    from cocircom_tpu_torch.mpc.rep3 import Rep3Driver
+def run_proof(make_prover, zkey, shares, traced: bool):
+    """Three party threads over the in-process network, party i proving
+    shares[i] with make_prover(net, tracer); returns (proofs, wall seconds,
+    per-span seconds of party 0)."""
     from cocircom_tpu_torch.mpc.runner import run_parties
-    from cocircom_tpu_torch.snark.groth16 import CoGroth16
     from cocircom_tpu_torch.utils.trace import Tracer
 
     rows = []
 
     def party(i, net):
         tracer = Tracer(enabled=traced and i == 0, net=net, sync=torch.cuda.synchronize)
-        where = {"device": device} if devices is None else {"devices": devices}
-        proof = CoGroth16(Rep3Driver(curve, net, **where), tracer).prove(zkey, shares[i])
+        proof = make_prover(net, tracer).prove(zkey, shares[i])
         if i == 0:
             rows.extend(tracer.rows)
             rows.append((0, "whole prove (party 0, incl. PRF setup)", 0.0, *net.stats()))
@@ -241,6 +316,17 @@ def prove_rep3(curve, zkey, shares, device, traced: bool, devices=None):
     spans = {name: {"s": round(dt, 3), "sent_bytes": sent, "recv_bytes": recvd}
              for _, name, dt, sent, recvd in rows}
     return proofs, wall, spans
+
+
+def prove_rep3(curve, zkey, shares, device, traced: bool, devices=None):
+    """A 3-party REP3 co-Groth16 proof (run_proof).  With `devices` the
+    parties' drivers are built with that list (the sharded engines)."""
+    from cocircom_tpu_torch.mpc.rep3 import Rep3Driver
+    from cocircom_tpu_torch.snark.groth16 import CoGroth16
+
+    where = {"device": device} if devices is None else {"devices": devices}
+    return run_proof(lambda net, tr: CoGroth16(Rep3Driver(curve, net, **where), tr),
+                     zkey, shares, traced)
 
 
 # ------------------------------------------------------------ phase: kernels
@@ -396,7 +482,8 @@ def phase_kernels(curve, device) -> list:
     # first level: times the four-step table, stored transposed), and over
     # Fr whole 2^20 transforms through the engine, forward and inverse, two
     # launches each and nothing else; ragged column counts and edge values
-    # (logm, V, B, with a factor table, transposed; V = 1 without a table) ----
+    # (logm, V, B, with a factor table, transposed; V = 1 without a table);
+    # over Fr, the three level shapes of a 2^22 transform ----
     def check_columns(f, shapes):
         err = 0
         for logm, V, B, with_post, transpose in shapes:
@@ -407,7 +494,7 @@ def phase_kernels(curve, device) -> list:
             tws = twiddles(f, logm, True)
             pt = rand_field(f, (M, V), gen) if with_post else None
             err = max(err, max_err(ntt_columns(f, xs, tws, pt, transpose),
-                                   ntt_columns_plain(f, xs, tws, pt, transpose)))
+                                   columns_plain(f, xs, tws, pt, transpose)))
         return err
 
     ragged = ((1, 5, 1, 1, 1), (2, 3, 3, 1, 1), (2, 1, 9, 0, 1), (3, 7, 1, 1, 0), (4, 1, 3, 0, 0),
@@ -439,14 +526,6 @@ def phase_kernels(curve, device) -> list:
         xa = rand_field(fr, (n,), gen)
         xa[:, :64] = edge(fr, 64)
 
-        def plain_whole(a, inverse):
-            """The engine's decomposition from the plain versions."""
-            tws = eng_fr._twiddles(10, inverse)
-            y = ntt_columns_plain(fr, a.reshape(L, M, B), tws,
-                                  eng_fr._fourstep_table(20, 10, inverse, 20 if inverse else None),
-                                  transpose=True)
-            return ntt_columns_plain(fr, y, tws).reshape(L, n)
-
         whole = []
         for inverse in (False, True):
             run = eng_fr.intt if inverse else eng_fr.ntt
@@ -458,11 +537,11 @@ def phase_kernels(curve, device) -> list:
             check(launched == {"ntt_columns": 2},
                   f"a 2^20 {'inverse ' if inverse else ''}transform launched {launched}, "
                   "not two ntt_columns")
-            err = max(err, max_err(got, plain_whole(xa, inverse)))
+            err = max(err, max_err(got, plain_transform(eng_fr, xa, inverse)))
             work = (5 * W * n + 2 * W * (M // 2), 2 * col_work[1] + n * mpm)
             whole.append({"log_n": 20, "inverse": inverse, "launches": 2,
                           "ms": time_cuda(lambda: run(xa), 10),
-                          "plain_ms": timed_plain(lambda: plain_whole(xa, inverse)),
+                          "plain_ms": timed_plain(lambda: plain_transform(eng_fr, xa, inverse)),
                           "bound_ms": bound(*work)[0], "bound_by": bound(*work)[1]})
         check(err == 0, f"a 2^20 transform (L={L}) disagrees with its plain decomposition")
         # the decomposition itself against the per-stage network at 2^20
@@ -471,6 +550,12 @@ def phase_kernels(curve, device) -> list:
         check(torch.equal(eng_fr.intt(eng_fr.ntt(xa)), xa), "intt(ntt(x)) != x at 2^20")
         extra["transforms"] = whole
         del xa, got
+        # the three levels of a 2^22 transform (PLONK's extended domain):
+        # (1024, V = 4096) with its factor table, (1024, V = 4, B = 1024),
+        # 4 points over 2^20 columns
+        err = check_columns(fr, ((10, 4096, 1, 1, 1), (10, 4, 1024, 1, 1), (2, 1, n, 0, 0)))
+        check(err == 0, f"ntt_columns disagrees with ntt_columns_plain at a 2^22 level "
+                        f"(max abs err {err})")
     record("ntt_columns", "ntt_columns.cu", "cocircom_tpu/ops/pallas_ntt.py:223", err, ms, pms,
            *col_work, [L, M, B], **extra)
 
@@ -824,16 +909,17 @@ def phase_prove_small(curve, device, n_mul: int) -> dict:
     return counts
 
 
-def small_inputs(curve, device, n_mul: int, seed: bytes):
+def small_inputs(curve, device, n_mul: int, seed: bytes, shamir: bool = False):
     """The hand-built multiplier chain over `curve` through the real setup
-    and the real loader: (zkey, vk, the parties' shares, publics, seconds the
-    host-side setup took)."""
+    and the real loader: (zkey, vk, the parties' REP3 shares, or Shamir
+    shares (t = 1) with `shamir`, publics, seconds the host-side setup
+    took)."""
     from cocircom_tpu_torch.io.r1cs import multiplier_chain
     from cocircom_tpu_torch.io.witness import Witness
     from cocircom_tpu_torch.io.zkey import read_groth16_zkey
     from cocircom_tpu_torch.ops.field import ints_to_limbs_np
     from cocircom_tpu_torch.snark.setup import groth16_setup
-    from cocircom_tpu_torch.snark.shared import split_witness_rep3
+    from cocircom_tpu_torch.snark.shared import split_witness_rep3, split_witness_shamir
 
     t0 = time.perf_counter()
     r1cs, vals = multiplier_chain(curve, n_mul, 3)
@@ -842,7 +928,10 @@ def small_inputs(curve, device, n_mul: int, seed: bytes):
     zkey = read_groth16_zkey(zkey_bytes, device=device)
     check(zkey.curve is curve, "the loader did not find the zkey's curve")
     wit = Witness(curve, len(vals), ints_to_limbs_np(vals, -(-curve.fr.bits // 32)))
-    shares = split_witness_rep3(wit, 2, seed=7, device=device)
+    if shamir:
+        shares = split_witness_shamir(wit, 2, 1, 3, seed=7, device=device)
+    else:
+        shares = split_witness_rep3(wit, 2, seed=7, device=device)
     return zkey, vk, shares, [vals[1], vals[2]], setup_s
 
 
@@ -1150,6 +1239,425 @@ def phase_prove_bls(device, n_mul: int) -> dict:
     return counts
 
 
+# ------------------------------------------------------- phase: prove_shamir
+
+def shamir_groth16(curve, device):
+    """make_prover for run_proof: co-Groth16 over a Shamir driver, t = 1."""
+    from cocircom_tpu_torch.mpc.shamir import ShamirDriver
+    from cocircom_tpu_torch.snark.groth16 import CoGroth16
+
+    return lambda net, tr: CoGroth16(ShamirDriver(curve, net, 1, device=device), tr)
+
+
+def phase_prove_shamir(curve, device, log_n: int, inputs) -> dict:
+    """3-party Shamir co-Groth16 (t = 1): prove_small's chain (verified), then
+    prove_full's synthetic zkey with the REP3 shares translated to Shamir;
+    before that proof the translated witness and a full-length product of
+    it are opened and held to the REP3-opened witness.  Returns the launch
+    counts of the full-sized proof alone."""
+    from cocircom_tpu_torch.mpc.bridges import translate_rep3_to_shamir
+    from cocircom_tpu_torch.mpc.rep3 import combine_field_shares
+    from cocircom_tpu_torch.mpc.runner import run_parties
+    from cocircom_tpu_torch.mpc.shamir import ShamirDriver
+    from cocircom_tpu_torch.ops import kernels
+    from cocircom_tpu_torch.ops.field import get_field
+    from cocircom_tpu_torch.snark.groth16 import SharedWitness
+
+    zkey, vk, shares, publics, _ = small_inputs(curve, device, SMALL_MULS, b"chip_smoke",
+                                                shamir=True)
+    proofs, wall_small, _ = run_proof(shamir_groth16(curve, device), zkey, shares, traced=False)
+    check_small_proofs("prove_shamir", vk, proofs, publics)
+
+    zkey, _, _, rep3_shares, _ = inputs
+    t0 = time.perf_counter()
+    shares = run_parties(lambda i, net: SharedWitness(
+        rep3_shares[i].public_inputs,
+        translate_rep3_to_shamir(curve, net, rep3_shares[i].witness, 1)), 3)
+    torch.cuda.synchronize()
+    translate_s = time.perf_counter() - t0
+
+    # the translated witness w and one full-length product w * roll(w)
+    # (DN07 pairs, king reduction, r_2t added in place), opened, against
+    # the REP3-opened witness
+    def opened(i, net):
+        d = ShamirDriver(curve, net, 1, device=device)
+        w = shares[i].witness
+        return d.open_many(w), d.open_many(d.mul_vec(w, w.roll(1, dims=1)))
+
+    t0 = time.perf_counter()
+    fr = get_field(curve.fr.p, curve.name + ".fr", device)
+    w = combine_field_shares(fr, [s.witness for s in rep3_shares])
+    ww = fr.mont_mul(w, w.roll(1, dims=1))
+    for ow, oww in run_parties(opened, 3):
+        check(torch.equal(ow, w), "prove_shamir: the translated witness opens to another one")
+        check(torch.equal(oww, ww), "prove_shamir: a full-length Shamir product opens wrong")
+    del w, ww
+    open_check_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    proofs, wall, spans = run_proof(shamir_groth16(curve, device), zkey, shares, traced=True)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(proofs[0] == proofs[1] == proofs[2], "prove_shamir: the parties' proofs differ")
+    check(on_curve(curve, proofs[0]), "prove_shamir: a proof point is not on its curve")
+    check(counts["ec_wave_add_g2"] > 0, "prove_shamir: ec_wave_add_g2 was never launched")
+    emit({"phase": "prove_shamir", "threshold": 1, "small_constraints": SMALL_MULS,
+          "small_prove_s": round(wall_small, 3), "small_verified": True,
+          "small_tamper_rejected": True, "log_n": log_n,
+          "constraints": zkey.matrices.num_constraints, "translate_s": round(translate_s, 3),
+          "open_check_s": round(open_check_s, 3),
+          "prove_s": round(wall, 3), "spans_party0": spans, "peak_device_bytes": int(peak),
+          "launches": {k: v for k, v in counts.items() if v},
+          "proofs_identical": True, "on_curve": True})
+    return counts
+
+
+# -------------------------------------------------------- phase: plonk_small
+
+
+
+@contextlib.contextmanager
+def insecure_deterministic():
+    """COCIRCOM_INSECURE_DETERMINISTIC=1 for the proofs inside only."""
+    os.environ["COCIRCOM_INSECURE_DETERMINISTIC"] = "1"
+    try:
+        yield
+    finally:
+        del os.environ["COCIRCOM_INSECURE_DETERMINISTIC"]
+
+
+def plonk_makers(curve, device) -> dict:
+    """{protocol: make_driver(net)} for the three protocols (Plain ignores
+    the network: its proof runs in each thread alone)."""
+    from cocircom_tpu_torch.mpc.driver import PlainDriver
+    from cocircom_tpu_torch.mpc.rep3 import Rep3Driver
+    from cocircom_tpu_torch.mpc.shamir import ShamirDriver
+
+    return {"plain": lambda net: PlainDriver(curve, device=device),
+            "rep3": lambda net: Rep3Driver(curve, net, device=device),
+            "shamir": lambda net: ShamirDriver(curve, net, 1, device=device)}
+
+
+def plonk_prove(proto: str, make_driver, zk, shares, deterministic=False, traced=False):
+    """run_proof with CoPlonk over make_driver(net): (proofs, wall, spans).
+    A Plain proof runs once, in this thread, and stands for all three."""
+    from cocircom_tpu_torch.snark.plonk import CoPlonk
+
+    if proto != "plain":
+        return run_proof(lambda net, tr: CoPlonk(make_driver(net), deterministic, tr),
+                         zk, shares, traced)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proof = CoPlonk(make_driver(None), deterministic).prove(zk, shares[0])
+    torch.cuda.synchronize()
+    return [proof] * 3, time.perf_counter() - t0, {}
+
+
+def plonk_small_curve(curve, n_mul: int, device, protocols) -> tuple:
+    """The chain with one two-term side over `curve` through the port's
+    plonk_setup and reader; a proof under each protocol, verified, and with
+    deterministic blinding the proofs' JSON byte-equal.  Returns (summary,
+    launch counts of the REP3 proof)."""
+    from cocircom_tpu_torch.io.jsonio import dump_plonk_proof
+    from cocircom_tpu_torch.io.plonk_zkey import read_plonk_zkey
+    from cocircom_tpu_torch.io.r1cs import multiplier_chain
+    from cocircom_tpu_torch.io.witness import Witness
+    from cocircom_tpu_torch.ops import kernels
+    from cocircom_tpu_torch.ops.field import get_field, ints_to_limbs_np
+    from cocircom_tpu_torch.snark.groth16 import SharedWitness
+    from cocircom_tpu_torch.snark.plonk_setup import plonk_setup
+    from cocircom_tpu_torch.snark.plonk_verify import verify_plonk
+    from cocircom_tpu_torch.snark.shared import split_witness_rep3, split_witness_shamir
+
+    t0 = time.perf_counter()
+    r1cs, vals = multiplier_chain(curve, n_mul, 3)
+    s = len(vals)   # one more constraint: (a + x3) * 1 = s, a two-term side
+    vals = vals + [(vals[2] + vals[3]) % curve.fr.p]
+    r1cs.constraints.append(([(2, 1), (3, 1)], [(0, 1)], [(s, 1)]))
+    r1cs.n_wires = r1cs.n_labels = len(vals)
+    r1cs.n_constraints += 1
+    zkey_bytes, vk = plonk_setup(r1cs, seed=b"chip_smoke_plonk")
+    setup_s = time.perf_counter() - t0
+    zk = read_plonk_zkey(zkey_bytes, device=device)
+    check(zk.n_additions == 1 and zk.curve is curve,
+          f"plonk_small: the {curve.name} zkey has {zk.n_additions} additions, not 1")
+    publics = [vals[1], vals[2]]
+    wit = Witness(curve, len(vals), ints_to_limbs_np(vals, -(-curve.fr.bits // 32)))
+    fr = get_field(curve.fr.p, curve.name + ".fr", device)
+    shares = {"plain": [SharedWitness(vals[:3], fr.encode(vals[3:]))] * 3,
+              "rep3": split_witness_rep3(wit, 2, seed=8, device=device),
+              "shamir": split_witness_shamir(wit, 2, 1, 3, seed=9, device=device)}
+    makers = plonk_makers(curve, device)
+    walls, counts, jsons = {}, None, {}
+    for proto in protocols:
+        with transform_sizes() as sizes:
+            kernels.reset_launch_counts()
+            proofs, wall, _ = plonk_prove(proto, makers[proto], zk, shares[proto])
+            c = kernels.launch_counts()
+        walls[proto] = round(wall, 3)
+        check(proofs[0] == proofs[1] == proofs[2], f"plonk_small: {proto} proofs differ")
+        check(verify_plonk(vk, proofs[0], publics),
+              f"plonk_small: verify_plonk refused the {curve.name} {proto} proof")
+        check(not verify_plonk(vk, proofs[0], [publics[0], publics[1] + 1]),
+              f"plonk_small: verify_plonk accepted a changed public input ({proto})")
+        # every transform is below 2^12 points: one ntt_butterfly launch each
+        check(c["ntt_butterfly"] == len(sizes) > 0 and c["ntt_columns"] == 0,
+              f"plonk_small: {len(sizes)} transforms took {c['ntt_butterfly']} ntt_butterfly "
+              f"and {c['ntt_columns']} ntt_columns launches, not one ntt_butterfly each")
+        if proto == "rep3":
+            counts = c
+        with insecure_deterministic():
+            det, _, _ = plonk_prove(proto, makers[proto], zk, shares[proto], deterministic=True)
+        check(verify_plonk(vk, det[0], publics),
+              f"plonk_small: verify_plonk refused the deterministic {proto} proof")
+        jsons[proto] = dump_plonk_proof(curve, det[0])
+    check(len(set(jsons.values())) == 1,
+          f"plonk_small: the deterministic {curve.name} proofs' JSON differ between protocols")
+    return ({"curve": curve.name, "gates": zk.n_constraints, "domain": zk.domain_size,
+             "additions": zk.n_additions, "setup_s": round(setup_s, 2), "prove_s": walls,
+             "verified": True, "tamper_rejected": True, "deterministic_json_equal": True},
+            counts)
+
+
+def phase_plonk_small(device) -> dict:
+    """plonk_small_curve over BN254 (Plain, REP3, Shamir) and over
+    BLS12-381 (Plain, REP3).  Returns the launch counts of the two REP3
+    proofs."""
+    from cocircom_tpu_torch.fields.params import BLS12_381, BN254
+
+    bn, counts = plonk_small_curve(BN254, PLONK_SMALL_MULS, device, ("rep3", "plain", "shamir"))
+    bls, counts_bls = plonk_small_curve(BLS12_381, BLS_MULS, device, ("rep3", "plain"))
+    total = {k: counts[k] + counts_bls[k] for k in counts}
+    emit({"phase": "plonk_small", "bn254": bn, "bls12_381": bls,
+          "launches": {k: v for k, v in total.items() if v}})
+    return total
+
+
+# --------------------------------------------------------- phase: plonk_full
+
+def columns_launches(logn: int) -> int:
+    """ntt_columns launches of one 2^logn transform (logn >= 12): one per
+    level of the four-step recursion."""
+    from cocircom_tpu_torch.ops.kernels import NTT_COLUMNS_MAX_LOG as kmax
+
+    k, m = 1, logn
+    while m > kmax:
+        m -= min(kmax, m - 1)
+        k += 1
+    return k
+
+
+def plonk_key(curve, log_n: int, device, seed: int):
+    """The PLONK zkey and vk of a 2^log_n-gate multiplier chain (two
+    public-input gates, then y = a^(n-1) in n - 2 multiplication gates),
+    built on the device with a real tau drawn from `seed`: p_tau by a batched
+    scalar multiplication, the selector and sigma evaluations from the gate
+    layout and the copy cycles (plonk_setup's orientation), coefficients by
+    the iNTT, the 4n evaluations by the NTT, commitments by the MSM.
+    Returns (zkey, vk, publics, aux witness (L, n - 3) Montgomery)."""
+    from cocircom_tpu_torch.io.plonk_zkey import CircomPoly, PlonkZKey
+    from cocircom_tpu_torch.io.zkey import G1Array
+    from cocircom_tpu_torch.mpc.driver import PlainDriver
+    from cocircom_tpu_torch.ops.curve import g1_ops, pmap
+    from cocircom_tpu_torch.ops.field import get_field
+    from cocircom_tpu_torch.ops.msm import msm_engine
+    from cocircom_tpu_torch.ops.ntt import ntt_engine, power_table
+
+    fr = get_field(curve.fr.p, curve.name + ".fr", device)
+    g1 = g1_ops(curve, device)
+    eng = ntt_engine(fr, curve.fr)
+    p = fr.p
+    n = 1 << log_n
+    n_mul = n - 2
+    rng = np.random.default_rng(seed)
+    tau = int.from_bytes(rng.bytes(48), "little") % p
+    k1, k2 = 2, 3
+
+    # gates: rows 0, 1 are the public inputs (wires 1, 2; ql = 1); row 2 + k
+    # multiplies wire k + 2 (a for k = 0) by a into wire k + 3 (1 for the last)
+    g = np.arange(n_mul, dtype=np.int64)
+    maps = [np.concatenate([[1, 2], g + 2]), np.concatenate([[0, 0], np.full(n_mul, 2)]),
+            np.concatenate([[0, 0], np.where(g == n_mul - 1, 1, g + 3)])]
+    vals = fr.encode([0, 1, p - 1])                       # selector values
+    chain = np.r_[0, 0, np.ones(n_mul, np.int64)]
+    pick = lambda idx: vals.index_select(1, torch.from_numpy(idx).to(fr.device))  # noqa: E731
+    qm, qo = pick(chain), pick(2 * chain)
+    ql, zero = pick(np.r_[1, 1, np.zeros(n_mul, np.int64)]), fr.zeros((n,)).contiguous()
+
+    # sigma: in the scan order (row, then a, b, c) each slot points at the
+    # previous slot of its wire, the first one at the last
+    sig = np.stack(maps, axis=1).reshape(-1)
+    pos = (np.arange(3)[None, :] * n + np.arange(n)[:, None]).reshape(-1)
+    order = np.argsort(sig, kind="stable")
+    srt = sig[order]
+    start = np.r_[True, srt[1:] != srt[:-1]]
+    grp = np.cumsum(start) - 1
+    last = np.r_[np.nonzero(start)[0][1:], len(order)] - 1
+    prev = np.arange(len(order)) - 1
+    prev[start] = last[grp[start]]
+    src = np.empty(3 * n, np.int64)
+    src[pos[order]] = pos[order[prev]]
+    w = power_table(fr, curve.fr.root_of_unity(log_n), n)
+    ident = torch.cat([w, fr.mont_mul(w, fr.const_mont(k1)[:, None]),
+                       fr.mont_mul(w, fr.const_mont(k2)[:, None])], dim=1)
+    sigma = ident.index_select(1, torch.from_numpy(src).to(fr.device))
+    del ident
+    lag = []
+    for i in range(2):
+        e = fr.zeros((n,)).clone()
+        e[:, i] = fr.const_mont(1)
+        lag.append(e)
+
+    def poly(evals):
+        coeffs = eng.intt(evals.contiguous())
+        ext = torch.cat([coeffs, fr.zeros((3 * n,))], dim=1)
+        return CircomPoly(coeffs, eng.ntt(ext))
+
+    polys = {name: poly(e) for name, e in (("qm", qm), ("ql", ql), ("qr", zero), ("qo", qo),
+                                           ("qc", zero), ("s1", sigma[:, :n]),
+                                           ("s2", sigma[:, n:2 * n]), ("s3", sigma[:, 2 * n:]))}
+    del sigma, qm, qo, ql
+    # p_tau[i] = tau^i G1, i < n + 6
+    scal = fr.from_mont(power_table(fr, tau, n + 6))
+    pts = g1.scalar_mul(g1.encode_points([curve.g1_gen]), scal)
+    ax, ay = g1.to_affine_limbs(pts)
+    del pts, scal
+    p_tau = G1Array(ax.contiguous(), ay.contiguous())
+    msm = msm_engine(g1, scalar_bits=curve.fr.p.bit_length())
+    ptau_n = pmap(lambda c: c[:, :n], PlainDriver(curve, device=device).g1_proj(p_tau))
+    commits = {}
+    for name, pl in polys.items():
+        res = msm.msm(ptau_n, fr.from_mont(pl.coeffs))
+        commits[name] = g1.decode_points(pmap(lambda c: c[:, None], res))[0]
+    host_g2 = host_mul_g2(curve, tau)
+    zk = PlonkZKey(
+        curve=curve, n_vars=n, n_public=2, domain_size=n, power=log_n, n_additions=0,
+        n_constraints=n, k1=k1, k2=k2, qm_c=commits["qm"], ql_c=commits["ql"],
+        qr_c=commits["qr"], qo_c=commits["qo"], qc_c=commits["qc"], s1_c=commits["s1"],
+        s2_c=commits["s2"], s3_c=commits["s3"], x_2=host_g2,
+        add_id1=np.zeros(0, np.int64), add_id2=np.zeros(0, np.int64),
+        add_f1=fr.zeros((0,)), add_f2=fr.zeros((0,)), map_a=maps[0], map_b=maps[1],
+        map_c=maps[2], lagrange=[poly(e) for e in lag], p_tau=p_tau, **polys)
+    vk = {"curve": curve, "n_public": 2, "power": log_n, "k1": k1, "k2": k2,
+          "x_2": host_g2, **{k: commits[k] for k in ("qm", "ql", "qr", "qo", "qc", "s1",
+                                                      "s2", "s3")}}
+    # the witness: a^(k+1) for k <= n_mul as prefix products
+    a = 3
+    pw = fr.cumprod(fr.encode([a]).expand(fr.L, n_mul + 1).contiguous())
+    y = int(fr.decode(pw[:, n_mul:])[0])
+    return zk, vk, [y, a], pw[:, 1:n_mul].contiguous()
+
+
+def phase_plonk_full(curve, device, log_n: int) -> dict:
+    """3-party co-PLONK on plonk_key's chain of 2^log_n gates: REP3 cold and
+    warm, then Shamir (t = 1); verify_plonk accepts each and refuses a
+    changed public input.  Each transform is its ntt_columns launches and
+    nothing else (three at 2^22); K1, K3, K4 and K5 launched.  Before the
+    key, untimed: a 2^22 transform each way and one K1 launch at round 3's
+    widest product, held to their plain versions.  Returns the launch counts
+    of the cold REP3 and the Shamir proof."""
+    from cocircom_tpu_torch.mpc.rep3 import share_field_vec
+    from cocircom_tpu_torch.mpc.shamir import share_field_vec_shamir
+    from cocircom_tpu_torch.ops import kernels
+    from cocircom_tpu_torch.ops.field import get_field, mont_mul_plain
+    from cocircom_tpu_torch.ops.ntt import ntt_engine
+    from cocircom_tpu_torch.snark.groth16 import SharedWitness
+    from cocircom_tpu_torch.snark.plonk_verify import verify_plonk
+
+    fr = get_field(curve.fr.p, curve.name + ".fr", device)
+    makers = plonk_makers(curve, device)
+
+    # one transform of the extended domain each way: its ntt_columns launches
+    # only (no mont_mul: the four-step factor is inside the first launch),
+    # once the engine's tables for the size are built, equal to the plain
+    # version of its levels; then intt(ntt(x)) = x
+    t0 = time.perf_counter()
+    eng = ntt_engine(fr, curve.fr)
+    gen = torch.Generator(device=device).manual_seed(4646)
+    x = rand_field(fr, (4 << log_n,), gen)
+    eng.intt(eng.ntt(x))
+    want = {"ntt_columns": columns_launches(log_n + 2)}
+    y = {}
+    for inverse in (False, True):
+        kernels.reset_launch_counts()
+        y[inverse] = (eng.intt if inverse else eng.ntt)(x)
+        c = {k: v for k, v in kernels.launch_counts().items() if v}
+        check(c == want, f"plonk_full: a 2^{log_n + 2} transform launched {c}, not {want}")
+        check(torch.equal(y[inverse], plain_transform(eng, x, inverse)),
+              f"plonk_full: a 2^{log_n + 2} {'inverse ' if inverse else ''}transform "
+              "disagrees with the plain version of its levels")
+    check(torch.equal(eng.intt(y[False]), x), f"plonk_full: intt(ntt(x)) != x at 2^{log_n + 2}")
+    del x, y
+    # K1 at round 3's widest product (Shamir: 32 vectors of 4n in one
+    # mont_mul): one launch, equal to the plain version a piece at a time
+    wide = 32 << (log_n + 2)
+    a, b = (torch.cat([rand_field(fr, (1 << 24,), gen) for _ in range(wide >> 24)], dim=1)
+            for _ in range(2))
+    kernels.reset_launch_counts()
+    got = fr.mont_mul(a, b)
+    c = {k: v for k, v in kernels.launch_counts().items() if v}
+    check(c == {"mont_mul": 1}, f"plonk_full: a ({fr.L}, {wide}) product launched {c}")
+    step = 1 << 20
+    check(all(torch.equal(got[:, i:i + step], mont_mul_plain(fr, a[:, i:i + step],
+                                                             b[:, i:i + step]))
+              for i in range(0, wide, step)),
+          f"plonk_full: mont_mul disagrees with mont_mul_plain at ({fr.L}, {wide})")
+    del a, b, got
+    precheck_s = time.perf_counter() - t0
+
+    total = {k: 0 for k in kernels.COUNT_KEYS}
+    proofs_out = []
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zk, vk, publics, aux = plonk_key(curve, log_n, device, seed=6000 + log_n)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    pub = [1] + publics
+    for proto, temps in (("rep3", ("cold", "warm")), ("shamir", ("cold",))):
+        if proto == "rep3":
+            shares = [SharedWitness(pub, s) for s in share_field_vec(fr, aux, seed=61)]
+        else:
+            shares = [SharedWitness(pub, s)
+                      for s in share_field_vec_shamir(fr, aux, 1, 3, seed=62, device=device)]
+        for temp in temps:
+            torch.cuda.empty_cache()   # the proof before may have left the pool fragmented
+            torch.cuda.reset_peak_memory_stats()
+            with transform_sizes() as sizes:
+                kernels.reset_launch_counts()
+                proofs, wall, spans = plonk_prove(proto, makers[proto], zk, shares, traced=True)
+                c = kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            check(proofs[0] == proofs[1] == proofs[2], f"plonk_full: {proto} proofs differ")
+            t0 = time.perf_counter()
+            check(verify_plonk(vk, proofs[0], publics),
+                  f"plonk_full: verify_plonk refused the {proto} proof")
+            verify_s = time.perf_counter() - t0
+            if temp == "cold":
+                check(not verify_plonk(vk, proofs[0], [publics[0], publics[1] + 1]),
+                      f"plonk_full: verify_plonk accepted a changed public input ({proto})")
+                total = {k: total[k] + c[k] for k in total}
+            logs = [s.bit_length() - 1 for s in sizes]
+            expect = sum(columns_launches(m) for m in logs)
+            check(c["ntt_columns"] == expect and c["ntt_butterfly"] == 0
+                  and logs.count(log_n + 2) > 0,
+                  f"plonk_full: {len(sizes)} transforms took {c['ntt_columns']} ntt_columns and "
+                  f"{c['ntt_butterfly']} ntt_butterfly launches, not {expect} and 0")
+            for k in ("mont_mul", "ntt_columns", "ec_add", "ec_madd"):
+                check(c[k] > 0, f"plonk_full: {k} was never launched in the {proto} proof")
+            proofs_out.append({
+                "protocol": proto, "run": temp, "prove_s": round(wall, 3),
+                "verify_s": round(verify_s, 2), "spans_party0": spans,
+                "peak_device_bytes": int(peak),
+                "transforms": {f"2^{m}": logs.count(m) for m in sorted(set(logs))},
+                "launches": {k: v for k, v in c.items() if v}})
+    emit({"phase": "plonk_full", "curve": curve.name, "log_n": log_n,
+          "precheck_s": round(precheck_s, 2), "key_build_s": round(build_s, 2),
+          "transform_2^%d_ntt_columns" % (log_n + 2): want["ntt_columns"],
+          "proofs": proofs_out, "verified": True, "tamper_rejected": True})
+    return total
+
+
 # -------------------------------------------------------------- phase: graft
 
 def phase_graft(curve, device) -> None:
@@ -1249,7 +1757,8 @@ def main() -> None:
               file=sys.stderr)
         sys.exit(2)
     device = "cuda"
-    full_sized = [p for p in ("prove_full", "prove_sharded", "profile") if p in phases]
+    full_sized = [p for p in ("prove_full", "prove_sharded", "prove_shamir", "profile")
+                  if p in phases]
     if full_sized and args.full_log < 18:
         fail("prove_full and prove_sharded run at 2^18 constraints or more")
 
@@ -1279,7 +1788,8 @@ def main() -> None:
         rows = phase_kernels(curve, device) + phase_kernels(BLS12_381, device)
 
     zero = {k: 0 for k in kernels.COUNT_KEYS}
-    runs = {"prove_small": zero, "prove_full_cold": zero, "prove_sharded": zero, "prove_bls": zero}
+    runs = {"prove_small": zero, "prove_full_cold": zero, "prove_sharded": zero,
+            "prove_shamir": zero, "prove_bls": zero, "plonk_small": zero, "plonk_full": zero}
     if "prove_small" in phases:
         runs["prove_small"] = phase_prove_small(curve, device, SMALL_MULS)
     inputs = None
@@ -1289,11 +1799,17 @@ def main() -> None:
         runs["prove_full_cold"] = phase_prove_full(curve, device, args.full_log, inputs)
     if "prove_sharded" in phases:
         runs["prove_sharded"] = phase_prove_sharded(curve, device, args.full_log, inputs)
+    if "prove_shamir" in phases:
+        runs["prove_shamir"] = phase_prove_shamir(curve, device, args.full_log, inputs)
     if "profile" in phases:
         phase_profile(curve, device, args.full_log, inputs)
     del inputs
     if "prove_bls" in phases:
         runs["prove_bls"] = phase_prove_bls(device, BLS_MULS)
+    if "plonk_small" in phases:
+        runs["plonk_small"] = phase_plonk_small(device)
+    if "plonk_full" in phases:
+        runs["plonk_full"] = phase_plonk_full(curve, device, PLONK_LOG)
     if "graft" in phases:
         phase_graft(curve, device)
     counts = {k: sum(r[k] for r in runs.values()) for k in kernels.COUNT_KEYS}

@@ -10,6 +10,7 @@ the list.
 Share-vector representation per driver:
   Plain : raw (L, N) Montgomery limb tensors
   REP3  : Rep3FieldShare(a=(L,N), b=(L,N))
+  Shamir: (L, N) (single component, degree-t polynomial share)
 
 Scalars fed to curve ops are ALWAYS converted out of Montgomery form first
 (standard-form limbs are what windowed scalar recoding expects).
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from ..fields.params import CurveParams
-from ..ops.curve import CurveOps, ProjPoint, g1_ops, g2_ops, pmap
+from ..ops.curve import CurveOps, ProjPoint, g1_ops, g2_ops, leaves, pmap
 from ..ops.field import Field, get_field, resolve_device, u64
 from ..ops.msm import msm_engine
 from ..ops.ntt import ntt_engine
@@ -46,6 +47,12 @@ def scalar_mul_many(ops: CurveOps, points: list, scalars: list) -> list:
     stacked = pmap(lambda *cs: torch.stack(cs, dim=-1), *pts)
     res = ops.scalar_mul(stacked, torch.stack(scalars, dim=-1))
     return [pmap(lambda c: c[..., i], res) for i in range(len(points))]
+
+
+def inverse(f: Field, a):
+    """Public inverses of (L, *batch) Montgomery elements (0 -> 0): a batch
+    inversion along axis 1 when it holds more than one element."""
+    return f.batch_inv(a) if a.dim() > 1 and a.shape[1] > 1 else f.inv(a)
 
 
 def as_index(idx, device) -> torch.Tensor:
@@ -129,6 +136,60 @@ class Driver:
     def host_g2(self, pt) -> ProjPoint:
         return self.g2.encode_points([pt])
 
+    # ---- generic share helpers (a share is a tensor or a tuple nest of
+    # (L, n) limb tensors) ----
+
+    def broadcast_share(self, x, n: int):
+        """single share (batch () or (1,)) -> batch (n,)."""
+        return pmap(lambda c: (c[:, None] if c.dim() == 1 else c[:, :1]).expand(c.shape[0], n), x)
+
+    def sum_vec(self, x):
+        """Reduce a share vector along its batch axis (local, linear)."""
+        return pmap(self.fr.sum, x)
+
+    def index_share(self, x, i: int):
+        return pmap(lambda c: c[:, i], x)
+
+    def stack_shares(self, xs: list):
+        return pmap(lambda *cs: torch.stack(cs, dim=1), *xs)
+
+    def evaluate_poly_public(self, coeffs_share, xi: int):
+        """Evaluate a shared polynomial at a public point (local)."""
+        from ..ops.ntt import power_table
+
+        n = leaves(coeffs_share)[0].shape[1]
+        return self.sum_vec(self.mul_public(coeffs_share, power_table(self.fr, xi, n)))
+
+    def prefix_mul(self, x):
+        """Inclusive prefix products of a share vector in constant rounds
+        (Ozdemir-Boneh masking): blind with r_i, open r_i x_i r_{i+1}^-1,
+        take the public prefix products, unblind with r_0^-1 r_{i+1}."""
+        n = leaves(x)[0].shape[1]
+        r = self.rand((n + 1,))
+        r_inv = self.inv_many(r)
+        r_inv0 = self.broadcast_share(self.slice_share(r_inv, 0, 1), n)
+        unblind = self.mul_vec(r_inv0, self.slice_share(r, 1, n + 1))
+        blinded = self.mul_vec(self.slice_share(r, 0, n), x)
+        opened = self.mul_open_many(blinded, self.slice_share(r_inv, 1, n + 1))
+        return self.mul_public(unblind, self.fr.cumprod(opened))
+
+    def slice_share(self, x, lo: int, hi: int):
+        return pmap(lambda c: c[:, lo:hi], x)
+
+    def concat_shares(self, *xs):
+        return pmap(lambda *cs: torch.cat(cs, dim=1), *xs)
+
+    def stack_points(self, pts: list):
+        """list of single point-shares -> batched point-share (batch k)."""
+        return pmap(lambda *cs: torch.stack(cs, dim=-1), *pts)
+
+    def msm_g1_many(self, points: ProjPoint, share_vecs: list) -> list:
+        """One G1 MSM a share vector over the same points, as one engine
+        call: bucket reduction and Horner run once for all.  For the drivers
+        whose share is one tensor; REP3 overrides it."""
+        res = self.msm_g1_engine.msm_many(points, [self.to_scalars(s) for s in share_vecs])
+        return [pmap(lambda c, i=i: c[..., i], res) for i in range(len(share_vecs))]
+
 
 class PlainDriver(Driver):
     """Single-party ground-truth driver."""
@@ -152,6 +213,12 @@ class PlainDriver(Driver):
     def sub(self, a, b):
         return self.fr.sub(a, b)
 
+    def neg(self, a):
+        return self.fr.neg(a)
+
+    def add_public(self, a, p):
+        return self.fr.add(a, p)
+
     def mul_public(self, a, p):
         return self.fr.mont_mul(a, p)
 
@@ -161,17 +228,27 @@ class PlainDriver(Driver):
     def mul(self, a, b):
         return self.fr.mont_mul(a, b)
 
+    def mul_open_many(self, a, b):
+        return self.fr.mont_mul(a, b)
+
     def rand(self, shape=()):
         return self._stream.rand_mont(self.fr, shape)
 
     def open_many(self, a):
         return a
 
+    open = open_many
+
+    def inv_many(self, a):
+        return inverse(self.fr, a)
+
     def gather(self, vec, idx):
         return vec.index_select(1, as_index(idx, vec.device))
 
     def concat(self, *vecs):
         return torch.cat(vecs, dim=1)
+
+    slice = Driver.slice_share
 
     def set_slice(self, vec, lo, values):
         out = vec.clone()

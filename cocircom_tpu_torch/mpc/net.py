@@ -58,6 +58,21 @@ class Network:
     def recv_next(self) -> Any:
         return self.recv(self.next_id)
 
+    def broadcast(self, obj) -> list:
+        """Send to all others, receive from all others; result[i] = party
+        i's value (own slot holds obj)."""
+        for to in range(self.n_parties):
+            if to != self.id:
+                self.send(to, obj)
+        return [obj if frm == self.id else self.recv(frm) for frm in range(self.n_parties)]
+
+    def broadcast_next(self, obj, num: int) -> list:
+        """Send to the next num-1 parties on the ring and receive from the
+        previous num-1: result[0] = own, result[k] = from (id-k) mod n."""
+        for k in range(1, num):
+            self.send((self.id + k) % self.n_parties, obj)
+        return [obj] + [self.recv((self.id - k) % self.n_parties) for k in range(1, num)]
+
 
 class LocalNetwork(Network):
     """In-process queue mesh (one object per party, shared queue table)."""

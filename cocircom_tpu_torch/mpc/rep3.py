@@ -8,8 +8,8 @@ Party i holds (a = x_i, b = x_{i-1}) of x = x0 + x1 + x2.
   * MSM/FFT are share-local per component
 
 All share payloads are Montgomery limb tensors (L, N); whole vectors are
-batched into ONE round.  The binary domain, sqrt_many and inv_many are not
-part of this slice.
+batched into ONE round.  The binary domain, sqrt_many and the VM's guarded
+inversion are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from ..fields.params import CurveParams
 from ..ops.curve import CurveOps, ProjPoint, pmap
 from ..ops.field import Field, broadcast_shapes
 from ..utils.chacha import ChaChaStream, fresh_seed
-from .driver import Driver, as_index, scalar_mul_many, segment_sum_mont
+from .driver import Driver, as_index, inverse, scalar_mul_many, segment_sum_mont
 from .net import Network
 
 
@@ -111,23 +111,73 @@ class Rep3Driver(Driver):
     def sub(self, x, y):
         return Rep3FieldShare(self.fr.sub(x.a, y.a), self.fr.sub(x.b, y.b))
 
+    def neg(self, x):
+        return Rep3FieldShare(self.fr.neg(x.a), self.fr.neg(x.b))
+
+    def add_public(self, x: Rep3FieldShare, p):
+        if self.id == 0:
+            return Rep3FieldShare(self.fr.add(x.a, p), x.b)
+        if self.id == 1:
+            return Rep3FieldShare(x.a, self.fr.add(x.b, p))
+        return x
+
     def mul_public(self, x, p):
         return Rep3FieldShare(self.fr.mont_mul(x.a, p), self.fr.mont_mul(x.b, p))
 
-    def mul_vec(self, x: Rep3FieldShare, y: Rep3FieldShare):
-        """ONE communication round for the whole vector."""
+    def _masked_product(self, x: Rep3FieldShare, y: Rep3FieldShare):
+        """This party's additive share of x*y: the 3-term cross product plus
+        a zero-sharing mask.  A long vector is formed a piece of the mask
+        draw at a time, so no full-length temporary is made."""
         f = self.fr
         batch = broadcast_shapes(x.a.shape[1:], y.a.shape[1:])
-        local = f.add(
-            f.add(f.mont_mul(x.a, y.a), f.mont_mul(x.a, y.b)),
-            f.mont_mul(x.b, y.a),
-        )
-        local = f.add(local, self.rngs.masking_field(f, batch))
+
+        def cross(xa, xb, ya, yb):
+            local = f.mont_mul(xa, ya)
+            local = f.add(local, f.mont_mul(xa, yb))
+            return f.add(local, f.mont_mul(xb, ya))
+
+        n = batch[0] if len(batch) == 1 else 0
+        if 2 * f.L * n <= self.rngs.rng1.PIECE:
+            return f.add(cross(x.a, x.b, y.a, y.b), self.rngs.masking_field(f, batch))
+        shape = (f.L, n)
+        xa, xb, ya, yb = (t.expand(shape) for t in (x.a, x.b, y.a, y.b))
+        out = torch.empty(shape, dtype=torch.int32, device=self.device)
+        for (c0, c1, m1), (_, _, m2) in zip(self.rngs.rng1.rand_mont_pieces(f, n),
+                                            self.rngs.rng2.rand_mont_pieces(f, n)):
+            cols = slice(c0, c1)
+            out[:, cols] = f.add(cross(xa[:, cols], xb[:, cols], ya[:, cols], yb[:, cols]),
+                                 f.sub(m1, m2))
+        return out
+
+    def mul_vec(self, x: Rep3FieldShare, y: Rep3FieldShare):
+        """ONE communication round for the whole vector."""
+        local = self._masked_product(x, y)
+        del x, y  # the operands may be the largest tensors alive
         self.net.send_next(local)
         prev = self._recv_tensor(self.net.recv_prev())
         return Rep3FieldShare(local, prev)
 
     mul = mul_vec
+
+    def mul_open_many(self, x, y):
+        """x*y opened to all parties: ONE round."""
+        local = self._masked_product(x, y)
+        self.net.send_next(local)
+        self.net.send_prev(local)
+        t_prev = self._recv_tensor(self.net.recv_prev())
+        t_next = self._recv_tensor(self.net.recv_next())
+        return self.fr.add(self.fr.add(local, t_prev), t_next)
+
+    def inv_many(self, x: Rep3FieldShare):
+        """Masked-open inversion, 2 rounds.  The opened r*x is 0 exactly when
+        x is 0, so every party learns whether a secret was zero; like the
+        upstream protocol, a zero denominator aborts."""
+        r = self.rand(x.a.shape[1:])
+        ry = self.mul_open_many(r, x)
+        if not bool(ry.any(dim=0).all()):
+            raise ZeroDivisionError("MPC inversion of a zero share (leaks zero-ness "
+                                    "by construction; the upstream protocol errors too)")
+        return self.mul_public(r, inverse(self.fr, ry))
 
     def rand(self, shape=()):
         a, b = self.rngs.random_fes(self.fr, shape)
@@ -138,6 +188,8 @@ class Rep3Driver(Driver):
         c = self._recv_tensor(self.net.recv_prev())
         return self.fr.add(self.fr.add(x.a, x.b), c)
 
+    open = open_many
+
     def gather(self, x: Rep3FieldShare, idx):
         idx = as_index(idx, x.a.device)
         return Rep3FieldShare(x.a.index_select(1, idx), x.b.index_select(1, idx))
@@ -147,6 +199,8 @@ class Rep3Driver(Driver):
             torch.cat([v.a for v in vecs], dim=1),
             torch.cat([v.b for v in vecs], dim=1),
         )
+
+    slice = Driver.slice_share
 
     def set_slice(self, x, lo, values: Rep3FieldShare):
         n = values.a.shape[1]
@@ -185,6 +239,15 @@ class Rep3Driver(Driver):
 
     def msm_g2(self, points, share_vec):
         return self._msm(self.msm_g2_engine, points, share_vec)
+
+    def msm_g1_many(self, points: ProjPoint, share_vecs: list) -> list:
+        """One G1 MSM a share vector over the same points: both components
+        of every share through one engine call."""
+        scal = [self.to_scalars(s) for s in share_vecs]
+        res = self.msm_g1_engine.msm_many(points, [c for s in scal for c in (s.a, s.b)])
+        return [Rep3PointShare(pmap(lambda c, i=i: c[..., 2 * i], res),
+                               pmap(lambda c, i=i: c[..., 2 * i + 1], res))
+                for i in range(len(scal))]
 
     def _msm(self, engine, points, share_vec):
         """Both share components through one engine call: the waves run per

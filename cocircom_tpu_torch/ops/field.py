@@ -315,14 +315,42 @@ class Field:
         limbs, carry = self._two_chains(s, s + self._col(self._negp32, s.dim()))
         return torch.where((carry[1] != 0)[None], limbs[1], limbs[0]).to(torch.int32)
 
-    def add(self, a, b):
+    # columns of one piece of `add` / `sub` (see _by_pieces)
+    PIECE = 1 << 22
+
+    def _by_pieces(self, fn, a, b, out=None):
+        """fn(a, b) for two (L, n) operands (one may be a size-1 batch), in
+        column pieces of at most PIECE elements when n is larger: the plain
+        carry chains hold a few int64 copies of their operands, which at
+        2^27 elements would be tens of GiB.  The result is the same.  With
+        `out` (which may be `a` or `b`) it is written there."""
+        if a.dim() != 2 or b.dim() != 2 or max(a.shape[1], b.shape[1]) <= self.PIECE:
+            res = fn(a, b)
+            return res if out is None else out.copy_(res)
+        n = max(a.shape[1], b.shape[1])
+        shape = (self.L, n)
+        a, b = a.expand(shape), b.expand(shape)
+        if out is None:
+            out = torch.empty(shape, dtype=torch.int32, device=a.device)
+        for lo in range(0, n, self.PIECE):
+            hi = min(n, lo + self.PIECE)
+            out[:, lo:hi] = fn(a[:, lo:hi], b[:, lo:hi])
+        return out
+
+    def add(self, a, b, out=None):
+        return self._by_pieces(self._add, a, b, out)
+
+    def sub(self, a, b, out=None):
+        return self._by_pieces(self._sub, a, b, out)
+
+    def _add(self, a, b):
         """(a + b) mod p.  The second chain is a + b - p in two's complement
         (a + b + ~p + 1): its carry-out says a + b >= p."""
         s = u64(a) + u64(b)
         limbs, carry = self._two_chains(s, s + self._col(self._negp32, s.dim()))
         return torch.where((carry[1] != 0)[None], limbs[1], limbs[0]).to(torch.int32)
 
-    def sub(self, a, b):
+    def _sub(self, a, b):
         """(a - b) mod p.  First chain a + ~b + 1 (carry-out says a >= b),
         second the same plus p, taken when the first borrowed."""
         d = u64(a) + (u64(b) ^ M32) + self._col(self._one_col, a.dim())
@@ -445,6 +473,29 @@ class Field:
         if axis < 1:
             raise ValueError("axis 0 is the limb axis")
         return self.reduce_cols(u64(a).sum(dim=axis))
+
+    def prefix_sums(self, a, axis: int = 1):
+        """Inclusive prefix sums along one batch axis (canonical Montgomery
+        in and out): integer column prefix sums in int64 (up to 2^30
+        terms), then one fold."""
+        if axis < 1:
+            raise ValueError("axis 0 is the limb axis")
+        return self.reduce_cols(torch.cumsum(u64(a), dim=axis))
+
+    def cumprod(self, a, axis: int = 1):
+        """Inclusive prefix products along one batch axis (public values,
+        Montgomery domain), log-depth: step s multiplies every element from
+        position 2^s on by the one 2^s before it (Hillis-Steele), one
+        `mont_mul` a step."""
+        if axis < 1:
+            raise ValueError("axis 0 is the limb axis")
+        n = a.shape[axis]
+        x = a
+        for s in range(max(n - 1, 0).bit_length()):
+            shift = 1 << s
+            tail = self.mont_mul(x.narrow(axis, shift, n - shift), x.narrow(axis, 0, n - shift))
+            x = torch.cat([x.narrow(axis, 0, shift), tail], dim=axis)
+        return x
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,6 +1,7 @@
 """SharedWitness construction: a witness file split for the provers.
 
-Parity: co-circom/co-circom-snarks/src/lib.rs (SharedWitness, share_rep3).
+Parity: co-circom/co-circom-snarks/src/lib.rs (SharedWitness, share_rep3,
+share_shamir).
 """
 
 from __future__ import annotations
@@ -34,4 +35,18 @@ def split_witness_rep3(w: Witness, n_public: int, seed: int | None = None,
     publics, aux_std = witness_layout(w, n_public)
     aux_mont = fr.to_mont(fr.from_numpy(aux_std))
     shares = share_field_vec(fr, aux_mont, seed=seed)
+    return [SharedWitness(publics, s) for s in shares]
+
+
+def split_witness_shamir(w: Witness, n_public: int, threshold: int, n_parties: int,
+                         seed: int | None = None, device=None):
+    """Dealer-side split into n_parties SharedWitness of degree-t Shamir
+    shares, on `device` (the card unless the caller names another)."""
+    from ..mpc.shamir import share_field_vec_shamir
+
+    fr = get_field(w.curve.fr.p, w.curve.name + ".fr", device)
+    publics, aux_std = witness_layout(w, n_public)
+    aux_mont = fr.to_mont(fr.from_numpy(aux_std))
+    shares = share_field_vec_shamir(fr, aux_mont, threshold, n_parties, seed=seed,
+                                    device=fr.device)
     return [SharedWitness(publics, s) for s in shares]

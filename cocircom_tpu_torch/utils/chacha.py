@@ -46,9 +46,16 @@ def _qr(a, b, c, d):
 def chacha_blocks(key8, ctr0: int, domain: int, nblocks: int, rounds: int = 12):
     """key8: (8,) int64 key words on the target device; ctr0/domain: ints.
     Returns (16, nblocks) int64 words in [0, 2^32): one block per column."""
-    n = nblocks
+    ctr = torch.arange(nblocks, dtype=torch.int64, device=key8.device) + int(ctr0)
+    return chacha_blocks_at(key8, ctr, domain, rounds)
+
+
+def chacha_blocks_at(key8, ctr, domain: int, rounds: int = 12):
+    """The blocks of the (n,) int64 block counters `ctr`: (16, n) int64
+    words in [0, 2^32), one block per column."""
+    ctr = ctr & M32
+    n = ctr.shape[0]
     dev = key8.device
-    ctr = (torch.arange(n, dtype=torch.int64, device=dev) + int(ctr0)) & M32
     zero = torch.zeros(n, dtype=torch.int64, device=dev)
     a0 = torch.tensor(_SIGMA, dtype=torch.int64, device=dev)[:, None].expand(4, n)
     b0 = key8[0:4, None].expand(4, n)
@@ -95,6 +102,11 @@ class ChaChaStream:
         self.domain = domain
         self.ctr = 0
 
+    # words rand_mont makes at once; a larger draw is made in pieces of this
+    # many words (the block function holds about 20 int64 copies of its
+    # state), with the same words in the same places
+    PIECE = 1 << 25
+
     def words(self, shape):
         """uniform 32-bit words of `shape`, as int64 in [0, 2^32)."""
         total = 1
@@ -120,7 +132,48 @@ class ChaChaStream:
         stream words w, top half-word zeroed, reduced as
         (w_lo + w_hi R) R^-1 mod p.  Word k of the stream is 32-bit limb k,
         i.e. the pair of 16-bit limbs (2k, 2k+1) of `limbs16`."""
-        w = self.words((2 * f.L,) + tuple(batch_shape))
+        batch = tuple(batch_shape)
+        n = 1
+        for s in batch:
+            n *= s
+        if 2 * f.L * n <= self.PIECE:
+            return self._reduce(f, self.words((2 * f.L,) + batch))
+        out = torch.empty((f.L, n), dtype=torch.int32, device=self.key.device)
+        for c0, c1, piece in self.rand_mont_pieces(f, n):
+            out[:, c0:c1] = piece
+        return out.reshape((f.L,) + batch)
+
+    def rand_mont_pieces(self, f, n: int):
+        """The draw rand_mont(f, (n,)) as (c0, c1, columns c0..c1) pieces of
+        at most PIECE words, for callers that use it a piece at a time; the
+        counter advances past the whole draw with the last piece.  Word k of
+        limb row i is stream word i * n + k, so a piece reads a span of
+        every row."""
+        step = max(1, self.PIECE // (2 * f.L))
+        dev = self.key.device
+        for c0 in range(0, n, step):
+            c1 = min(n, c0 + step)
+            # the blocks that hold every row's span, made in one call
+            starts = [i * n + c0 for i in range(2 * f.L)]
+            spans = [(s // 16, -(-(s + c1 - c0) // 16)) for s in starts]
+            ctr = torch.cat([torch.arange(b0, b1, dtype=torch.int64, device=dev)
+                             for b0, b1 in spans]) + self.ctr
+            w = chacha_blocks_at(self.key, ctr, self.domain).t().reshape(-1)
+            del ctr
+            rows, off = [], 0
+            for s, (b0, b1) in zip(starts, spans):
+                lo = off + s - 16 * b0
+                rows.append(w[lo: lo + c1 - c0])
+                off += 16 * (b1 - b0)
+            rows = torch.stack(rows)
+            del w
+            piece = self._reduce(f, rows)
+            if c1 == n:
+                self.ctr += -(-2 * f.L * n // 16)
+            yield c0, c1, piece
+
+    @staticmethod
+    def _reduce(f, w):
         lo = w[: f.L].to(torch.int32)
         hi = w[f.L:].clone()
         hi[f.L - 1] &= 0xFFFF

@@ -27,6 +27,9 @@ bad = sorted(m for m in sys.modules
 assert len(names) >= 20, names
 assert "cocircom_tpu_torch.parallel.sharded" in names and \
     "cocircom_tpu_torch.graft_entry" in names, names
+for m in ("mpc.shamir", "mpc.bridges", "ops.keccak", "io.jsonio", "io.plonk_zkey",
+          "snark.plonk", "snark.plonk_setup", "snark.plonk_verify"):
+    assert "cocircom_tpu_torch." + m in names, m
 print("MODULES", len(names))
 print("BAD", bad)
 """
@@ -86,6 +89,29 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         sharded.prover_core_step(BN254, ["cuda", "cuda"])
     with pytest.raises(RuntimeError, match="CUDA"):
         PlainDriver(BLS12_381)
+    # the Shamir and PLONK entry points
+    from cocircom_tpu_torch.io.plonk_zkey import read_plonk_zkey
+    from cocircom_tpu_torch.io.witness import Witness
+    from cocircom_tpu_torch.mpc.net import LocalNetwork
+    from cocircom_tpu_torch.mpc.shamir import ShamirDriver, share_field_vec_shamir
+    from cocircom_tpu_torch.snark.shared import split_witness_shamir
+
+    net = LocalNetwork.create(3)[0]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShamirDriver(BN254, net)
+    fr_cpu = get_field(BN254.fr.p, "bn254.fr", device="cpu")
+    vec = fr_cpu.encode([1, 2, 3])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        share_field_vec_shamir(fr_cpu, vec, 1, 3, seed=1)
+    wit = Witness(BN254, 4, np.zeros((8, 4), dtype=np.uint32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        split_witness_shamir(wit, 1, 1, 3, seed=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        read_plonk_zkey(b"")
+    assert all(s.device.type == "cpu"
+               for s in share_field_vec_shamir(fr_cpu, vec, 1, 3, seed=1, device="cpu"))
+    assert split_witness_shamir(wit, 1, 1, 3, seed=1, device="cpu")[0].witness.device.type \
+        == "cpu"
     cpu = torch.device("cpu")
     assert sharded.device_list(3, "cpu") == [cpu] * 3
     assert PlainDriver(BN254, devices=["cpu", "cpu"]).devices == (cpu, cpu)

@@ -5,6 +5,8 @@ runs with device="cpu" on its plain versions; results are compared with
 tolerance 0 (exact integer arithmetic), points by affine decode.
 """
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -71,3 +73,15 @@ def small_msm_engines(monkeypatch):
         port_msm.msm_engine.cache_clear()
 
     return restore
+
+
+def plonk_chain(curve, r1cs_cls, n_mul: int, a_val: int):
+    """`multiplier_chain` plus one constraint (a + x3 + x4) * 1 = s with s a
+    new wire: PLONK's setup turns its three-term side into two additions,
+    the second reading the first.  Returns (r1cs, witness values as ints)."""
+    r1cs, vals = multiplier_chain(curve, r1cs_cls, n_mul, a_val)
+    s = len(vals)
+    vals = vals + [(vals[2] + vals[3] + vals[4]) % curve.fr.p]
+    cons = list(r1cs.constraints) + [([(2, 1), (3, 1), (4, 1)], [(0, 1)], [(s, 1)])]
+    return dataclasses.replace(r1cs, n_wires=len(vals), n_labels=len(vals),
+                               n_constraints=len(cons), constraints=cons), vals
