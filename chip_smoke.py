@@ -87,6 +87,29 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  mont_mul, ntt_columns, ec_add and ec_madd launched; walls,
                  party 0's five round spans, peak device memory, the key's
                  build seconds, launches per kernel
+  vm_small       the circom witness extension on the card: the inline sources
+                 of tests/test_torch_vm.py (signed comparisons with p-1 as
+                 -1, Num2Bits-style shifts and band/bor/bxor chains, shl/shr,
+                 pow, sqrt, guarded division by a secret zero, cmux) compiled
+                 by the port's compile_circom and run under REP3, the
+                 arithmetic ones also under Shamir (t = 1), the comparisons
+                 also over BLS12-381 (9-limb binary shares): every party's
+                 opened witness equal to run_host at every slot, REP3 shares
+                 replicated; then the pipeline: Chain(300) (the multiplier
+                 chain of prove_small, wire for wire) split by
+                 split_input_rep3 with `a` public, run_shared_input under REP3
+                 (publics [1, 3^301, 3]), a REP3 co-Groth16 proof of the
+                 shared witness with the zkey of groth16_setup(multiplier_chain),
+                 the three proofs equal, verified, a changed public input
+                 refused; mont_mul launched by the VM
+  vm_full        the witness extension at a real size: 1,024 cells, each a
+                 Num2Bits(254), a signed a < b, an a == b, (a & b) ^ (a | b)
+                 (binary-resident, b2a exit), a * b, a ** 5 and a guarded
+                 a / b (about 792,000 ops, 267,265 witness slots), inputs from
+                 a seed; host compile and run_host timed apart; REP3 on the
+                 card cold and warm, the whole witness opened and equal to
+                 run_host at every slot; walls, party 0's rounds and bytes,
+                 launches, peak device memory
   graft          graft_entry.entry() and graft_entry.dryrun_multichip(2)
 The launch counts are set to 0 just before each phase's first 3-party proof
 and read just after it, so they hold the proving paths alone; a line
@@ -148,7 +171,8 @@ PLONK_SMALL_MULS = 200  # chain gates of plonk_small over BN254 (domain 256)
 PLONK_LOG = 20          # gates (log2) of plonk_full's chain
 
 ALL_PHASES = ("build", "device", "kernels", "prove_small", "prove_full", "prove_sharded",
-              "prove_shamir", "prove_bls", "plonk_small", "plonk_full", "graft")
+              "prove_shamir", "prove_bls", "plonk_small", "plonk_full", "vm_small", "vm_full",
+              "graft")
 OPTIONAL_PHASES = ("profile",)
 
 
@@ -1658,6 +1682,408 @@ def phase_plonk_full(curve, device, log_n: int) -> dict:
     return total
 
 
+# ---------------------------------------------------- phases: vm_small, vm_full
+
+# the inline circom sources of tests/test_torch_vm.py (the circuits of the
+# JAX package's tests/test_vm.py and tests/test_rep3_binary.py, and one each
+# for bit ops, a binary-resident or/xor chain, sqrt, pow with guarded
+# division and cmux, the chain)
+VM_SOURCES = {
+    "acc": """
+    pragma circom 2.0.0;
+    template Acc(N) {
+        signal input in[N];
+        signal output out;
+        var acc = 0;
+        for (var i = 0; i < N; i++) {
+            if (i % 2 == 0) { acc += in[i] * in[i]; } else { acc += 2 * in[i]; }
+        }
+        out <== acc;
+    }
+    component main = Acc(5);
+    """,
+    "fib": """
+    pragma circom 2.0.0;
+    function fib(n) {
+        var a = 0; var b = 1;
+        for (var i = 0; i < n; i++) { var t = a + b; a = b; b = t; }
+        return a;
+    }
+    template T() {
+        signal input x;
+        signal output out;
+        signal output cmp;
+        out <== x * fib(10);
+        cmp <-- x > 5 ? 1 : 0;
+    }
+    component main = T();
+    """,
+    "cmp": """
+    pragma circom 2.0.0;
+    template Cmp() {
+        signal input a;
+        signal input b;
+        signal output lt; signal output ge; signal output eq; signal output gt;
+        lt <-- a < b;
+        ge <-- a >= b;
+        eq <-- a == b;
+        gt <-- a > b;
+    }
+    component main = Cmp();
+    """,
+    "bits": """
+    pragma circom 2.0.0;
+    template Bits() {
+        signal input a;
+        signal input b;
+        signal output bits[8];
+        signal output x;
+        signal output sh;
+        for (var i = 0; i < 8; i++) { bits[i] <-- (a >> i) & 1; }
+        x <-- (a & b) + (a | b) + (a ^ b);
+        sh <-- (a << 3) + (b >> 2);
+    }
+    component main = Bits();
+    """,
+    "bitchain": """
+    pragma circom 2.0.0;
+    template BitChain() {
+        signal input a;
+        signal input b;
+        signal output x;
+        x <-- ((a & b) ^ (a | b)) ^ 5;
+    }
+    component main = BitChain();
+    """,
+    "sqrt": """
+    pragma circom 2.0.0;
+    function sqrt(n) { return n; }
+    template Sqrt() {
+        signal input a[3];
+        signal output r[3];
+        for (var i = 0; i < 3; i++) { r[i] <-- sqrt(a[i]); }
+    }
+    component main = Sqrt();
+    """,
+    "arith": """
+    pragma circom 2.0.0;
+    template Arith() {
+        signal input a;
+        signal input b;
+        signal input c;
+        signal output p5;
+        signal output q;
+        signal output g;
+        signal output h;
+        p5 <-- a ** 5;
+        q <-- a / b;
+        g <-- c ? a * b : b - a;
+        var t = 1;
+        if (c) { t = a / b; }
+        h <-- t;
+    }
+    component main = Arith();
+    """,
+    "chain": """
+    pragma circom 2.0.0;
+    template Chain(N) {
+        signal input a;
+        signal output y;
+        signal x[N];
+        x[0] <== a;
+        for (var i = 1; i < N; i++) { x[i] <== x[i-1] * a; }
+        y <== x[N-1] * a;
+    }
+    component main {public [a]} = Chain(%d);
+    """,
+}
+VM_SQRT_ROOT = 0x1234567890ABCDEF1234567890ABCDEF
+VM_SHAMIR = ("acc", "arith", "chain")  # the tapes that need no binary domain
+
+# vm_full: N cells, each a 254-bit decomposition, a signed comparison, an
+# equality, a binary-resident bit chain, a product, a fifth power and a
+# guarded division
+VM_FULL_N = 1024
+VM_FULL_SRC = """
+pragma circom 2.0.0;
+template Num2Bits(n) {
+    signal input in;
+    signal output out[n];
+    var lc1 = 0;
+    var e2 = 1;
+    for (var i = 0; i < n; i++) {
+        out[i] <-- (in >> i) & 1;
+        out[i] * (out[i] - 1) === 0;
+        lc1 += out[i] * e2;
+        e2 = e2 + e2;
+    }
+    lc1 === in;
+}
+template Cells(N) {
+    signal input a[N];
+    signal input b[N];
+    signal output lt[N];
+    signal output eq[N];
+    signal output bx[N];
+    signal output prod[N];
+    signal output p5[N];
+    signal output q[N];
+    component bits[N];
+    for (var i = 0; i < N; i++) {
+        bits[i] = Num2Bits(254);
+        bits[i].in <== a[i];
+        lt[i] <-- a[i] < b[i];
+        eq[i] <-- a[i] == b[i];
+        bx[i] <-- (a[i] & b[i]) ^ (a[i] | b[i]);
+        prod[i] <== a[i] * b[i];
+        p5[i] <-- a[i] ** 5;
+        q[i] <-- a[i] / b[i];
+    }
+}
+component main = Cells(%d);
+"""
+
+
+def vm_inputs(p: int) -> dict:
+    """The input cases of each small source: the cmp and arith cases take a
+    secret zero divisor and p - 1 (which circom reads as -1); sqrt's are
+    squares; (p - 1) | wide >= p, where a bit op's result must be reduced."""
+    wide = (1 << (p.bit_length() - 1)) + 12345
+    return {
+        "acc": [{"in": [1, 2, 3, 4, 5]}],
+        "fib": [{"x": 7}, {"x": 3}],
+        "cmp": [{"a": 3, "b": 5}, {"a": p - 1, "b": 1}, {"a": 7, "b": 7}, {"a": 0, "b": p - 2}],
+        "bits": [{"a": 0xB7, "b": 77}, {"a": p - 1, "b": wide}],
+        "bitchain": [{"a": 0xB7, "b": 77}, {"a": p - 1, "b": wide}],
+        "sqrt": [{"a": [49, 4, VM_SQRT_ROOT * VM_SQRT_ROOT % p]}],
+        "arith": [{"a": 10, "b": 0, "c": 1}, {"a": p - 1, "b": 3, "c": 0}],
+        "chain": [{"a": 3}],
+    }
+
+
+def counting_net(net):
+    """A party's network that counts its messages to the next party: one a
+    REP3 round."""
+    from cocircom_tpu_torch.mpc.net import Network
+
+    class Counted(Network):
+        def __init__(self, inner):
+            self.id, self.n_parties, self._inner, self.rounds = inner.id, inner.n_parties, inner, 0
+
+        def send(self, to, obj):
+            self.rounds += to == self.next_id
+            self._inner.send(to, obj)
+
+        def recv(self, frm):
+            return self._inner.recv(frm)
+
+        def stats(self):
+            return self._inner.stats()
+
+    return Counted(net)
+
+
+def vm_flat(circuit, inputs: dict, p: int) -> list:
+    vals = []
+    for name in circuit.input_slots:
+        v = inputs[name]
+        vals.extend(v if isinstance(v, list) else [v])
+    return [x % p for x in vals]
+
+
+def vm_run_shared(phase, curve, circuit, cases, device, shamir=False) -> dict:
+    """Every input case of one tape through run_shared on the card, all three
+    parties, REP3 (or Shamir, t = 1): the opened witnesses of the parties
+    equal each other and run_host at every slot; under REP3 party i's b is
+    party i-1's a at every slot.  Returns party 0's rounds and bytes."""
+    from cocircom_tpu_torch.mpc.driver import PlainDriver
+    from cocircom_tpu_torch.mpc.rep3 import Rep3Driver, share_field_vec
+    from cocircom_tpu_torch.mpc.runner import run_parties
+    from cocircom_tpu_torch.mpc.shamir import ShamirDriver, share_field_vec_shamir
+    from cocircom_tpu_torch.ops.field import get_field
+    from cocircom_tpu_torch.vm.mpc_vm import WitnessExtension
+
+    fr = get_field(curve.fr.p, curve.name + ".fr", device)
+    host = WitnessExtension(PlainDriver(curve, device=device), circuit)
+    shares = []
+    for j, inputs in enumerate(cases):
+        vec = fr.encode(vm_flat(circuit, inputs, fr.p))
+        shares.append(share_field_vec_shamir(fr, vec, 1, 3, seed=j, device=device) if shamir
+                      else share_field_vec(fr, vec, seed=j))
+
+    def party(i, net):
+        net = counting_net(net)
+        d = ShamirDriver(curve, net, 1, device=device) if shamir else Rep3Driver(curve, net, device)
+        vm = WitnessExtension(d, circuit)
+        out = []
+        for sh in shares:
+            w = vm.run_shared(sh[i], vm.all_input_slots())
+            out.append((w, [int(v) for v in fr.decode(d.open_many(w))]))
+        return out, net.rounds, net.stats()
+
+    res = run_parties(party, 3)
+    for j, inputs in enumerate(cases):
+        want = host.run_host(inputs)
+        for i in range(3):
+            w, opened = res[i][0][j]
+            check(opened == want, f"{phase}: party {i}'s opened witness differs from run_host "
+                                  f"({inputs})")
+            if not shamir:
+                prev = res[(i - 1) % 3][0][j][0]
+                check(torch.equal(w.b, prev.a), f"{phase}: the REP3 sharing is not replicated")
+    return {"rounds": res[0][1], "sent_bytes": res[0][2][0]}
+
+
+def vm_run_shared_input(curve, circuit, sis, device):
+    """run_shared_input under REP3 on the card, three parties: (shared
+    witnesses, wall seconds, party 0's rounds and bytes sent)."""
+    from cocircom_tpu_torch.mpc.rep3 import Rep3Driver
+    from cocircom_tpu_torch.mpc.runner import run_parties
+    from cocircom_tpu_torch.vm.mpc_vm import WitnessExtension
+
+    def party(i, net):
+        net = counting_net(net)
+        sw = WitnessExtension(Rep3Driver(curve, net, device), circuit).run_shared_input(sis[i])
+        return sw, net.rounds, net.stats()[0]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_parties(party, 3)
+    torch.cuda.synchronize()
+    return [r[0] for r in res], time.perf_counter() - t0, res[0][1], res[0][2]
+
+
+def vm_open(phase, curve, sws, device, want: list) -> None:
+    """Open the shared witnesses (three parties): equal on every party,
+    replicated, and [publics | opened] equal to run_host at every slot."""
+    from cocircom_tpu_torch.mpc.rep3 import Rep3Driver
+    from cocircom_tpu_torch.mpc.runner import run_parties
+    from cocircom_tpu_torch.ops.field import get_field
+
+    opened = run_parties(lambda i, net: Rep3Driver(curve, net, device).open_many(sws[i].witness), 3)
+    for i in range(3):
+        check(torch.equal(opened[i], opened[0]), f"{phase}: the parties opened different witnesses")
+        check(torch.equal(sws[i].witness.b, sws[(i - 1) % 3].witness.a),
+              f"{phase}: the REP3 sharing is not replicated")
+        check(sws[i].public_inputs == sws[0].public_inputs, f"{phase}: the publics differ")
+    f = get_field(curve.fr.p, curve.name + ".fr", device)
+    got = [int(v) for v in sws[0].public_inputs] + [int(v) for v in f.decode(opened[0])]
+    check(got == want, f"{phase}: the opened witness differs from run_host at "
+                       f"{sum(a != b for a, b in zip(got, want))} of {len(want)} slots")
+
+
+def phase_vm_small(device) -> dict:
+    """The witness extension on the card: every small tape under REP3, the
+    arithmetic ones under Shamir, the comparisons over BLS12-381, then the
+    pipeline: Chain(300) split with `a` public, run_shared_input, a REP3
+    co-Groth16 proof of the shared witness, verified.  Returns the launch
+    counts of the VM runs and of the proof."""
+    from cocircom_tpu_torch.fields.params import BLS12_381
+    from cocircom_tpu_torch.fields.params import BN254 as curve
+    from cocircom_tpu_torch.io.r1cs import multiplier_chain
+    from cocircom_tpu_torch.mpc.driver import PlainDriver
+    from cocircom_tpu_torch.mpc.rep3 import Rep3Driver
+    from cocircom_tpu_torch.ops import kernels
+    from cocircom_tpu_torch.snark.groth16 import CoGroth16
+    from cocircom_tpu_torch.snark.shared import split_input_rep3
+    from cocircom_tpu_torch.vm.compiler import compile_circom
+    from cocircom_tpu_torch.vm.mpc_vm import WitnessExtension
+
+    p = curve.fr.p
+    cases = vm_inputs(p)
+    t0 = time.perf_counter()
+    compiled = {n: compile_circom(src % 5 if n == "chain" else src, curve)
+                for n, src in VM_SOURCES.items()}
+    bls_cmp = compile_circom(VM_SOURCES["cmp"], BLS12_381)
+    chain = compile_circom(VM_SOURCES["chain"] % SMALL_MULS, curve)
+    compile_s = time.perf_counter() - t0
+    zkey, vk, _, publics, _ = small_inputs(curve, device, SMALL_MULS, b"chip_smoke_vm")
+    _, chain_vals = multiplier_chain(curve, SMALL_MULS, 3)
+    check(WitnessExtension(PlainDriver(curve, device=device), chain).run_host({"a": 3})
+          == chain_vals, "vm_small: Chain(300)'s host witness is not multiplier_chain's")
+    sis = split_input_rep3(curve, {"a": 3}, chain.public_names, seed=11, device=device)
+
+    stats = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for name, circuit in compiled.items():
+        stats[name] = vm_run_shared("vm_small", curve, circuit, cases[name], device)
+    for name in VM_SHAMIR:
+        stats[name + "_shamir"] = vm_run_shared("vm_small (Shamir)", curve, compiled[name],
+                                                cases[name], device, shamir=True)
+    q = BLS12_381.fr.p
+    stats["cmp_bls12_381"] = vm_run_shared(
+        "vm_small (BLS12-381)", BLS12_381, bls_cmp,
+        [{"a": a, "b": b} for a, b in ((3, 5), (q - 1, 1), (7, 7), (0, q - 2))], device)
+    ops_s = time.perf_counter() - t0
+    sws, vm_wall, rounds, sent = vm_run_shared_input(curve, chain, sis, device)
+    counts_vm = kernels.launch_counts()
+    check(counts_vm["mont_mul"] > 0 and counts_vm["mont_mul_l12"] == 0,
+          "vm_small: the VM did not launch the 8-limb mont_mul")
+    check(sws[0].public_inputs == [1, pow(3, SMALL_MULS + 1, p), 3],
+          f"vm_small: the chain's publics are {sws[0].public_inputs[:3]}")
+    vm_open("vm_small", curve, sws, device, chain_vals)
+    kernels.reset_launch_counts()
+    proofs, prove_s, _ = run_proof(lambda net, tr: CoGroth16(Rep3Driver(curve, net, device), tr),
+                                   zkey, sws, traced=False)
+    counts_prove = kernels.launch_counts()
+    check_small_proofs("vm_small", vk, proofs, publics)
+    emit({"phase": "vm_small", "compile_s": round(compile_s, 3), "tapes_s": round(ops_s, 3),
+          "tapes": stats,
+          "chain": {"n": SMALL_MULS, "vm_s": round(vm_wall, 3), "rounds_party0": rounds,
+                    "sent_bytes_party0": sent, "prove_s": round(prove_s, 3),
+                    "verified": True, "tamper_rejected": True},
+          "mont_mul_vm": counts_vm["mont_mul"],
+          "launches_prove": {k: v for k, v in counts_prove.items() if v}})
+    return {k: counts_vm[k] + counts_prove[k] for k in kernels.COUNT_KEYS}
+
+
+def phase_vm_full(curve, device, n: int) -> dict:
+    """The witness extension at a real size: VM_FULL_SRC with n cells
+    (n x Num2Bits(254) and the rest), compiled on the host, inputs from a
+    seed, REP3 on the card cold and warm, the whole witness opened and held
+    to run_host.  Returns the launch counts of the cold run."""
+    from cocircom_tpu_torch.mpc.driver import PlainDriver
+    from cocircom_tpu_torch.ops import kernels
+    from cocircom_tpu_torch.snark.shared import split_input_rep3
+    from cocircom_tpu_torch.vm.compiler import compile_circom
+    from cocircom_tpu_torch.vm.mpc_vm import WitnessExtension
+
+    p = curve.fr.p
+    t0 = time.perf_counter()
+    circuit = compile_circom(VM_FULL_SRC % n, curve)
+    compile_s = time.perf_counter() - t0
+    rng = np.random.default_rng(4646)
+    a = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(n)]
+    b = [int.from_bytes(rng.bytes(32), "little") % p for _ in range(n)]
+    b[0], b[1] = 0, a[1]  # a guarded division by zero, an equality
+    inputs = {"a": a, "b": b}
+    t0 = time.perf_counter()
+    want = WitnessExtension(PlainDriver(curve, device=device), circuit).run_host(inputs)
+    host_s = time.perf_counter() - t0
+    sis = split_input_rep3(curve, inputs, circuit.public_names, seed=12, device=device)
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    sws, cold, rounds, sent = vm_run_shared_input(curve, circuit, sis, device)
+    counts = kernels.launch_counts()
+    vm_open("vm_full", curve, sws, device, want)
+    del sws
+    sws, warm, rounds_w, sent_w = vm_run_shared_input(curve, circuit, sis, device)
+    peak = torch.cuda.max_memory_allocated()
+    vm_open("vm_full (warm)", curve, sws, device, want)
+    check(counts["mont_mul"] > 0, "vm_full: the VM did not launch mont_mul")
+    check((rounds_w, sent_w) == (rounds, sent), "vm_full: the warm run took other rounds")
+    emit({"phase": "vm_full", "cells": n, "ops": sum(len(lv) for lv in circuit.levels),
+          "levels": len(circuit.levels), "witness": circuit.n_vars, "temps": circuit.n_temps,
+          "compile_s": round(compile_s, 2), "host_s": round(host_s, 3),
+          "wall_cold_s": round(cold, 3), "wall_warm_s": round(warm, 3),
+          "rounds_party0": rounds, "sent_bytes_party0": sent, "mont_mul": counts["mont_mul"],
+          "launches": {k: v for k, v in counts.items() if v},
+          "peak_device_bytes": int(peak), "witness_equals_host": True})
+    return counts
+
+
 # -------------------------------------------------------------- phase: graft
 
 def phase_graft(curve, device) -> None:
@@ -1789,7 +2215,8 @@ def main() -> None:
 
     zero = {k: 0 for k in kernels.COUNT_KEYS}
     runs = {"prove_small": zero, "prove_full_cold": zero, "prove_sharded": zero,
-            "prove_shamir": zero, "prove_bls": zero, "plonk_small": zero, "plonk_full": zero}
+            "prove_shamir": zero, "prove_bls": zero, "plonk_small": zero, "plonk_full": zero,
+            "vm_small": zero, "vm_full": zero}
     if "prove_small" in phases:
         runs["prove_small"] = phase_prove_small(curve, device, SMALL_MULS)
     inputs = None
@@ -1810,6 +2237,10 @@ def main() -> None:
         runs["plonk_small"] = phase_plonk_small(device)
     if "plonk_full" in phases:
         runs["plonk_full"] = phase_plonk_full(curve, device, PLONK_LOG)
+    if "vm_small" in phases:
+        runs["vm_small"] = phase_vm_small(device)
+    if "vm_full" in phases:
+        runs["vm_full"] = phase_vm_full(curve, device, VM_FULL_N)
     if "graft" in phases:
         phase_graft(curve, device)
     counts = {k: sum(r[k] for r in runs.values()) for k in kernels.COUNT_KEYS}

@@ -51,6 +51,39 @@ def rep3_share_from_reference(share, device=None) -> Rep3FieldShare:
                           field_from_reference(share[1], device))
 
 
+def binary_share_from_reference(share, device=None, limbs: int | None = None):
+    """A reference Rep3BinaryShare (a, b) of 16-bit limbs with numpy leaves
+    -> the port's, 32-bit limbs, zero-extended to `limbs` limbs if given
+    (9 for BLS12-381 Fr)."""
+    from .mpc.rep3_binary import Rep3BinaryShare
+
+    def one(x):
+        t = field_from_reference(x, device)
+        if limbs is not None and limbs > t.shape[0]:
+            t = torch.cat([t, t.new_zeros((limbs - t.shape[0],) + tuple(t.shape[1:]))])
+        return t
+
+    return Rep3BinaryShare(one(share[0]), one(share[1]))
+
+
+def binary_share_to_reference(share):
+    """The port's Rep3BinaryShare -> (a, b) numpy arrays of 16-bit limbs."""
+    return tuple(field_to_reference(c) for c in share)
+
+
+def circuit_from_reference(c):
+    """A reference CompiledCircuit -> the port's, with the curve mapped (the
+    tape holds only tuples of python strings and ints)."""
+    from .vm.compiler import CompiledCircuit
+
+    return CompiledCircuit(
+        curve=_curve(c.curve), n_signals=c.n_signals, n_outputs=c.n_outputs,
+        input_slots={k: list(v) for k, v in c.input_slots.items()},
+        output_slots={k: list(v) for k, v in c.output_slots.items()},
+        public_names=list(c.public_names), levels=[list(lv) for lv in c.levels],
+        n_temps=c.n_temps)
+
+
 def _index(a, device):
     return torch.from_numpy(np.asarray(a).astype(np.int64)).to(device)
 

@@ -8,8 +8,9 @@ Party i holds (a = x_i, b = x_{i-1}) of x = x0 + x1 + x2.
   * MSM/FFT are share-local per component
 
 All share payloads are Montgomery limb tensors (L, N); whole vectors are
-batched into ONE round.  The binary domain, sqrt_many and the VM's guarded
-inversion are not ported yet.
+batched into ONE round.  The binary domain (a2b, comparisons, bit circuits)
+is `Rep3Driver.binary` (mpc/rep3_binary.py); `sqrt_many` and
+`inv_many_guarded` serve the witness-extension VM.
 """
 
 from __future__ import annotations
@@ -38,12 +39,20 @@ class Rep3PointShare(NamedTuple):
 
 class Rep3Rngs:
     """Correlated ChaCha12 streams keyed with the exchanged 256-bit seeds.
-    Domain 0 (the counter-mode nonce word) is the main stream: masking and
-    random shares.  The streams live on `device`: the card unless named."""
+    Domains (the counter-mode nonce word) separate independent sub-streams
+    of the same pairwise seed:
+      0: main rand (masking, random shares)
+      1: bitcomp (b2a's correlated field elements)
+      2: binary masks (XOR zero-sharings)
+    The streams live on `device`: the card unless named."""
 
     def __init__(self, seed_self: bytes | int, seed_prev: bytes | int, device=None):
         self.rng1 = ChaChaStream(seed_self, domain=0, device=device)
         self.rng2 = ChaChaStream(seed_prev, domain=0, device=device)
+        self.bit1 = ChaChaStream(seed_self, domain=1, device=device)
+        self.bit2 = ChaChaStream(seed_prev, domain=1, device=device)
+        self.bin1 = ChaChaStream(seed_self, domain=2, device=device)
+        self.bin2 = ChaChaStream(seed_prev, domain=2, device=device)
 
     def random_fes(self, f: Field, shape=()):
         """(r_self, r_prev) — a valid random share pair."""
@@ -53,6 +62,31 @@ class Rep3Rngs:
         """r_self - r_prev: sums to zero over the 3 parties."""
         a, b = self.random_fes(f, shape)
         return f.sub(a, b)
+
+    def binary_mask(self, f: Field, nbits: int, shape=()):
+        """r_self ^ r_prev over nbits: XORs to zero over the 3 parties."""
+        return self.binary_masks(f, nbits, shape, 1)[0]
+
+    def binary_masks(self, f: Field, nbits: int, shape=(), n: int = 1):
+        """n zero-XOR masks of (L, *shape) int32 limbs, the top limb cut to
+        nbits - 32 (L - 1) bits.  Each mask takes ceil(L * size / 16) blocks
+        of both streams and the n draws follow each other: every party makes
+        the same requests, so the correlated streams stay in lockstep."""
+        L = f.L
+        total = 1
+        for s in shape:
+            total *= s
+        per = max(1, -(-(L * total) // 16)) * 16
+
+        def draw(stream):
+            return stream.words((n, per))[:, : L * total]
+
+        w = draw(self.bin1) ^ draw(self.bin2)
+        w = w.reshape((n, L) + tuple(shape))
+        top_bits = nbits - 32 * (L - 1)
+        w[:, L - 1] &= (1 << top_bits) - 1 if top_bits > 0 else 0
+        w = w.to(torch.int32)
+        return [w[i] for i in range(n)]
 
 
 def share_field_vec(f: Field, vec_mont, seed: bytes | int | None = None):
@@ -91,6 +125,15 @@ class Rep3Driver(Driver):
         if len(seed_prev) != 32:
             raise ValueError("PRF setup: peer seed must be 32 bytes")
         self.rngs = Rep3Rngs(seed_self, seed_prev, device=self.device)
+
+    @property
+    def binary(self):
+        """Binary-domain ops (a2b, comparisons, bit circuits)."""
+        if not hasattr(self, "_binary"):
+            from .rep3_binary import Rep3Binary
+
+            self._binary = Rep3Binary(self)
+        return self._binary
 
     def _recv_tensor(self, obj):
         return pmap(lambda t: t.to(self.device), obj)
@@ -178,6 +221,38 @@ class Rep3Driver(Driver):
             raise ZeroDivisionError("MPC inversion of a zero share (leaks zero-ness "
                                     "by construction; the upstream protocol errors too)")
         return self.mul_public(r, inverse(self.fr, ry))
+
+    def inv_many_guarded(self, x: Rep3FieldShare):
+        """Like inv_many but maps 0 -> 0 instead of aborting: the VM's
+        guarded division (x / 0 -> 0 on lanes whose secret branch is
+        untaken, as circom-mpc-vm guards divisors).  Zero-ness of each lane
+        is still revealed, which the masked-open construction cannot avoid."""
+        r = self.rand(x.a.shape[1:])
+        ry = self.mul_open_many(r, x)
+        return self.mul_public(r, inverse(self.fr, ry))
+
+    def sqrt_many(self, x: Rep3FieldShare):
+        """Masked-open square root (upstream rep3.rs:400-447): open r^2 x
+        and r_squ r_inv in ONE round, take the public root on the host,
+        unmask with r_inv (r_squ r_inv)^-1.  Returns SOME root; the caller
+        fixes the sign (r^2 x is uniform over the squares and leaks nothing)."""
+        from ..vm.mpc_vm import tonelli_shanks
+
+        f = self.fr
+        n = x.a.shape[1]
+        r_squ = self.rand((n,))
+        r_inv = self.rand((n,))
+        rr = self.mul_vec(r_squ, r_squ)
+        opened = self.mul_open_many(self.concat(rr, r_squ), self.concat(x, r_inv))
+        roots = []
+        for v in f.from_limbs(f.from_mont(opened[:, :n])):
+            r = tonelli_shanks(int(v), f.p)
+            if r is None:
+                raise ValueError("MPC sqrt: value is a non-residue")
+            roots.append(r)
+        y_sq = f.encode(roots)
+        y_inv = inverse(f, opened[:, n:].contiguous())
+        return self.mul_public(self.mul_public(r_inv, y_inv), y_sq)
 
     def rand(self, shape=()):
         a, b = self.rngs.random_fes(self.fr, shape)

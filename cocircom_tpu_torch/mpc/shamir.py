@@ -308,6 +308,13 @@ class ShamirDriver(Driver):
             raise ZeroDivisionError("MPC inversion of a zero share")
         return self.mul_public(r, inverse(self.fr, opened))
 
+    def inv_many_guarded(self, x):
+        """Like inv_many but maps 0 -> 0 instead of aborting: the VM's
+        guarded division (see Rep3Driver.inv_many_guarded)."""
+        r = self.rand(x.shape[1:])
+        opened = self.open_many(self.mul_vec(r, x))
+        return self.mul_public(r, inverse(self.fr, opened))
+
     def gather(self, x, idx):
         return x.index_select(1, as_index(idx, x.device))
 

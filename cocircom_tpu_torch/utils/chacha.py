@@ -101,11 +101,18 @@ class ChaChaStream:
         self.key = seed_to_words(seed, device)
         self.domain = domain
         self.ctr = 0
+        self._ahead = None   # (16, AHEAD) words of the blocks from _ahead_at on
+        self._ahead_at = 0
 
     # words rand_mont makes at once; a larger draw is made in pieces of this
     # many words (the block function holds about 20 int64 copies of its
     # state), with the same words in the same places
     PIECE = 1 << 25
+    # a draw of fewer blocks than this is cut from one call that makes this
+    # many, and the blocks after it serve the next draws: the block function
+    # is a few hundred tensor ops whatever its width, and the MPC rounds of
+    # the binary domain draw a few hundred blocks each
+    AHEAD = 1 << 13
 
     def words(self, shape):
         """uniform 32-bit words of `shape`, as int64 in [0, 2^32)."""
@@ -113,7 +120,14 @@ class ChaChaStream:
         for s in shape:
             total *= s
         nblk = max(1, -(-total // 16))
-        out = chacha_blocks(self.key, self.ctr, self.domain, nblk)
+        if nblk >= self.AHEAD:
+            out = chacha_blocks(self.key, self.ctr, self.domain, nblk)
+        else:
+            at = self.ctr - self._ahead_at
+            if self._ahead is None or at < 0 or at + nblk > self.AHEAD:
+                self._ahead = chacha_blocks(self.key, self.ctr, self.domain, self.AHEAD)
+                self._ahead_at, at = self.ctr, 0
+            out = self._ahead[:, at: at + nblk]
         self.ctr += nblk
         return out.t().reshape(-1)[:total].reshape(tuple(shape))
 

@@ -22,33 +22,9 @@ from cocircom_tpu_torch.fields.params import BN254 as PBN254
 from cocircom_tpu_torch.mpc.runner import run_parties
 from cocircom_tpu_torch.ops.field import get_field
 from cocircom_tpu_torch.utils.chacha import ChaChaStream, chacha_blocks, seed_to_words
-from torch_port_util import rand_ints, same, to_port
+from torch_port_util import pin_rep3_seeds, rand_ints, run_named, same, to_port
 
 P = BN254.fr.p
-SEEDS = [bytes([i + 1]) * 32 for i in range(3)]
-
-
-def _pin_seeds(monkeypatch):
-    """Party i draws SEEDS[i]: parties construct their drivers in any
-    order, so the seed is chosen by the calling thread's name."""
-    import threading
-
-    def pinned():
-        return SEEDS[int(threading.current_thread().name.split("-")[-1])]
-
-    monkeypatch.setattr(ref_rep3, "fresh_seed", pinned)
-    monkeypatch.setattr(port_rep3, "fresh_seed", pinned)
-
-
-def _named(run, fn):
-    """Run fn under `run`, naming each party thread party-<i> first."""
-    import threading
-
-    def wrapped(i, net):
-        threading.current_thread().name = f"party-{i}"
-        return fn(i, net)
-
-    return run(wrapped, 3)
 
 
 @pytest.mark.parametrize("seed", [7, b"\x05" * 32])
@@ -85,7 +61,7 @@ def test_rand_mont_and_share_field_vec_equal():
 
 
 def test_mul_vec_open_many_open_point_equal(monkeypatch):
-    _pin_seeds(monkeypatch)
+    pin_rep3_seeds(monkeypatch, ref_rep3, port_rep3)
     rf = ref_get_field(P, "bn254.fr")
     f = get_field(P, "bn254.fr", device="cpu")
     xs, ys = rand_ints(P, 6, 1), rand_ints(P, 6, 2)
@@ -110,8 +86,8 @@ def test_mul_vec_open_many_open_point_equal(monkeypatch):
         pt = d.scalar_mul_public_point(d.g1, gen, port_rep3.Rep3FieldShare(z.a[:, :1], z.b[:, :1]))
         return z, opened, d.g1.decode_points(d.open_point(d.g1, pt))
 
-    ref = _named(ref_run_parties, ref_party)
-    got = _named(run_parties, port_party)
+    ref = run_named(ref_run_parties, ref_party)
+    got = run_named(run_parties, port_party)
     want = [x * y % P for x, y in zip(xs, ys)]
     for (z, o, pt), (rz, ro, rpt) in zip(got, ref):
         assert same(z.a, rz.a) and same(z.b, rz.b)

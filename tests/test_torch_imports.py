@@ -28,7 +28,8 @@ assert len(names) >= 20, names
 assert "cocircom_tpu_torch.parallel.sharded" in names and \
     "cocircom_tpu_torch.graft_entry" in names, names
 for m in ("mpc.shamir", "mpc.bridges", "ops.keccak", "io.jsonio", "io.plonk_zkey",
-          "snark.plonk", "snark.plonk_setup", "snark.plonk_verify"):
+          "snark.plonk", "snark.plonk_setup", "snark.plonk_verify", "mpc.rep3_binary",
+          "vm.lexer", "vm.parser", "vm.algebra", "vm.compiler", "vm.mpc_vm"):
     assert "cocircom_tpu_torch." + m in names, m
 print("MODULES", len(names))
 print("BAD", bad)
@@ -108,6 +109,15 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         split_witness_shamir(wit, 1, 1, 3, seed=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         read_plonk_zkey(b"")
+    # the witness extension's entry points
+    from cocircom_tpu_torch.snark.shared import split_input_rep3
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        split_input_rep3(BN254, {"a": 1, "b": 2}, ["a"], seed=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.binary_share_from_reference((limbs16, limbs16))
+    assert split_input_rep3(BN254, {"a": 1, "b": 2}, ["a"], seed=1, device="cpu")[0] \
+        .shared_inputs["b"].a.device.type == "cpu"
     assert all(s.device.type == "cpu"
                for s in share_field_vec_shamir(fr_cpu, vec, 1, 3, seed=1, device="cpu"))
     assert split_witness_shamir(wit, 1, 1, 3, seed=1, device="cpu")[0].witness.device.type \

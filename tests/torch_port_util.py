@@ -17,6 +17,33 @@ from cocircom_tpu_torch import convert
 torch.set_num_threads(2)
 
 
+PARTY_SEEDS = [bytes([i + 1]) * 32 for i in range(3)]
+
+
+def pin_rep3_seeds(monkeypatch, *modules):
+    """Party i's REP3 driver draws PARTY_SEEDS[i] as its PRF seed in every
+    module named: parties construct their drivers in any order, so the
+    seed is chosen by the calling thread's name (see `run_named`)."""
+    import threading
+
+    def pinned():
+        return PARTY_SEEDS[int(threading.current_thread().name.split("-")[-1])]
+
+    for m in modules:
+        monkeypatch.setattr(m, "fresh_seed", pinned)
+
+
+def run_named(run, fn, n: int = 3):
+    """Run fn under the runner `run`, naming each party thread party-<i>."""
+    import threading
+
+    def wrapped(i, net):
+        threading.current_thread().name = f"party-{i}"
+        return fn(i, net)
+
+    return run(wrapped, n)
+
+
 def rand_ints(p: int, n: int, seed: int) -> list:
     rng = np.random.default_rng(seed)
     return [int.from_bytes(rng.bytes(48), "little") % p for _ in range(n)]
