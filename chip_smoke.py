@@ -110,9 +110,37 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  card cold and warm, the whole witness opened and equal to
                  run_host at every slot; walls, party 0's rounds and bytes,
                  launches, peak device memory
+  cli            the port's command line (python -m cocircom_tpu_torch.cli) as
+                 separate party processes on the card, once the earlier phases
+                 have let go of it (torch.cuda.empty_cache; free memory
+                 printed): gen-cert three times, then every mesh under mutual
+                 TLS (plain TCP, and gen-cert must fail naming the package,
+                 where `cryptography` does not import); small pipelines on
+                 SplitChain, prove_small's 300-constraint chain with its first
+                 factor split into two private inputs (write_r1cs writes its
+                 .r1cs): setup groth16 and plonk, split-input by two input
+                 providers, merge-input-shares, three generate-witness
+                 --protocol rep3 (the opened witness equal to run_host),
+                 REP3, Shamir (translate-witness) and PLONK proofs, a plain
+                 witness, split and proof; verify accepts each proof and
+                 refuses a changed public input, the parties' proof files
+                 byte-equal.  Then prove_full's synthetic key written as a
+                 .zkey file (write_groth16_zkey, read back equal) and its REP3
+                 shares as .shared files, and three generate-proof groth16
+                 processes at 2^20 with COCIRCOM_TRACE=1: proofs byte-equal
+                 and on curve; each party's startup, zkey read, prove and
+                 span seconds, bytes, peak device memory and launches (K1,
+                 K3, K4, K5, the G2 add and the G2 wave must show), the wall
+                 from spawn to the last exit beside this run's warm
+                 in-process prove_full; the K4 launches of the three
+                 processes beside the warm in-process proof's and three
+                 times the MSM engine's per-process set-up
   graft          graft_entry.entry() and graft_entry.dryrun_multichip(2)
 The launch counts are set to 0 just before each phase's first 3-party proof
-and read just after it, so they hold the proving paths alone; a line
+and read just after it, so they hold the proving paths alone (the cli
+phase's are those its generate-proof processes report, each from 0 where
+its proof starts; what a process launched before that, reading its zkey,
+is reported apart as `launches_setup`); a line
 {"phase": "launches", ...} gives each proof's counts apart.  Then one line
 {"kernels": [...]} whose launches are their sum, the nvidia-smi line, and as
 the last line
@@ -152,10 +180,14 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -172,7 +204,7 @@ PLONK_LOG = 20          # gates (log2) of plonk_full's chain
 
 ALL_PHASES = ("build", "device", "kernels", "prove_small", "prove_full", "prove_sharded",
               "prove_shamir", "prove_bls", "plonk_small", "plonk_full", "vm_small", "vm_full",
-              "graft")
+              "cli", "graft")
 OPTIONAL_PHASES = ("profile",)
 
 
@@ -1050,8 +1082,9 @@ def full_inputs(curve, device, log_n: int, gen: torch.Generator):
     return zkey, k_a, k_b2, shares, build_s
 
 
-def phase_prove_full(curve, device, log_n: int, inputs) -> dict:
-    """Returns the launch counts of the cold 3-party proof alone."""
+def phase_prove_full(curve, device, log_n: int, inputs) -> tuple:
+    """Returns the launch counts of the cold 3-party proof alone, the warm
+    proof's wall seconds and the warm proof's launch counts."""
     from cocircom_tpu_torch.mpc.driver import PlainDriver
     from cocircom_tpu_torch.ops import kernels
     from cocircom_tpu_torch.ops.curve import pmap
@@ -1066,7 +1099,9 @@ def phase_prove_full(curve, device, log_n: int, inputs) -> dict:
         kernels.reset_launch_counts()
         proofs, cold, spans_cold = prove_rep3(curve, zkey, shares, device, traced=True)
         counts_cold = kernels.launch_counts()
+    kernels.reset_launch_counts()
     proofs_w, warm, spans_warm = prove_rep3(curve, zkey, shares, device, traced=True)
+    counts_warm = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     check(proofs[0] == proofs[1] == proofs[2], "prove_full: the parties' proofs differ")
     check(proofs_w[0] == proofs_w[1] == proofs_w[2], "prove_full: warm proofs differ")
@@ -1117,7 +1152,7 @@ def phase_prove_full(curve, device, log_n: int, inputs) -> dict:
           "spans_warm_party0": spans_warm, "peak_device_bytes": int(peak),
           "transforms": len(sizes), "ntt_columns": counts_cold["ntt_columns"],
           "proofs_identical": True, "on_curve": True})
-    return counts_cold
+    return counts_cold, round(warm, 3), counts_warm
 
 
 def msm_cases(curve, d, zkey, k_a, k_b2, fr, s_std) -> dict:
@@ -2154,6 +2189,551 @@ def phase_profile(curve, device, log_n: int, inputs) -> None:
 
 # --------------------------------------------------------------------- main
 
+# ------------------------------------------------------------------ phase: cli
+
+CLI_CHAIN_SRC = """
+pragma circom 2.0.0;
+template SplitChain(N) {
+    signal input a;
+    signal input b;
+    signal input c;
+    signal output y;
+    signal x[N];
+    x[0] <== b * c;
+    for (var i = 1; i < N; i++) { x[i] <== x[i-1] * a; }
+    y <== x[N-1] * a;
+}
+component main {public [a]} = SplitChain(%d);
+"""
+
+
+def cli_chain(curve, n_cons: int, a: int, b: int, c: int):
+    """The R1CS of CLI_CHAIN_SRC % (n_cons - 1): prove_small's multiplier
+    chain whose first link multiplies two private inputs b and c (one for
+    each of two input providers), y = b c a^(n_cons - 1).  Wires, in circom's
+    order: 0 = 1, 1 = y (public output), 2 = a (public input), 3 = b, 4 = c,
+    5.. = x.  Returns (r1cs, witness values as ints)."""
+    from cocircom_tpu_torch.io.r1cs import R1CS
+
+    p = curve.fr.p
+    n = n_cons - 1
+    vals = [1, None, a % p, b % p, c % p]
+    x = [vals[3] * vals[4] % p]
+    for _ in range(1, n):
+        x.append(x[-1] * vals[2] % p)
+    vals[1] = x[-1] * vals[2] % p
+    vals += x
+    cons = [([(3, 1)], [(4, 1)], [(5, 1)])]
+    cons += [([(4 + i, 1)], [(2, 1)], [(5 + i, 1)]) for i in range(1, n)]
+    cons.append(([(4 + n, 1)], [(2, 1)], [(1, 1)]))
+    r1cs = R1CS(curve=curve, n_wires=len(vals), n_pub_out=1, n_pub_in=1, n_prv_in=2,
+                n_labels=len(vals), n_constraints=len(cons), constraints=cons,
+                wire_mapping=list(range(len(vals))))
+    return r1cs, vals
+
+
+def write_r1cs(r1cs) -> bytes:
+    """An R1CS in the iden3 .r1cs format that `read_r1cs` reads: header
+    (section 1), constraints with standard-form coefficients (section 2),
+    wire-to-label map (section 3).  Neither package writes .r1cs files."""
+    import struct
+
+    from cocircom_tpu_torch.io.binfile import write_binfile
+
+    p = r1cs.curve.fr.p
+    n8 = 4 * -(-p.bit_length() // 32)
+    hdr = (struct.pack("<I", n8) + p.to_bytes(n8, "little")
+           + struct.pack("<IIIIQI", r1cs.n_wires, r1cs.n_pub_out, r1cs.n_pub_in,
+                         r1cs.n_prv_in, r1cs.n_labels, r1cs.n_constraints))
+    cons = []
+    for lcs in r1cs.constraints:
+        for terms in lcs:
+            cons.append(struct.pack("<I", len(terms)))
+            for wire, coeff in terms:
+                cons.append(struct.pack("<I", wire) + (coeff % p).to_bytes(n8, "little"))
+    labels = r1cs.wire_mapping or list(range(r1cs.n_wires))
+    return write_binfile("r1cs", 1, [(1, hdr), (2, b"".join(cons)),
+                                     (3, struct.pack(f"<{len(labels)}Q", *labels))])
+
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI_FULL_FILES = ("full.zkey", "full.w0.shared", "full.w1.shared", "full.w2.shared")
+# the spans of cli.cmd_generate_proof that the cli line reports
+CLI_SPANS = {"startup (torch, CUDA context, kernels)": "startup_s", "read witness": "read_witness_s",
+             "mesh (connect, PRF setup)": "mesh_s", "read zkey": "read_zkey_s",
+             "generate-proof groth16": "prove_s"}
+# the kernels each 2^20 party must report having launched
+CLI_FULL_KERNELS = ("mont_mul", "ntt_columns", "ec_add", "ec_madd", "ec_add_g2", "ec_wave_add_g2")
+
+
+def _mont_bytes(v: int, p: int, n8: int) -> bytes:
+    return (v * pow(2, 8 * n8, p) % p).to_bytes(n8, "little")
+
+
+def _points_bytes(coords) -> bytes:
+    """(L, n) coordinate tensors -> the zkey's point-major Montgomery bytes."""
+    return torch.stack(list(coords)).permute(2, 0, 1).contiguous().cpu().numpy().tobytes()
+
+
+def write_groth16_zkey(zkey) -> bytes:
+    """A Groth16 key held as tensors (prove_full's synthetic one) as snarkjs
+    .zkey bytes that `read_groth16_zkey` reads back: the header and vk points
+    in Montgomery form, the IC as (n_public + 1) copies of the generator (the
+    synthetic key has none; the prover does not read it), the matrices with
+    each coefficient as v R^2 and snarkjs' public-input rows (which the
+    loader drops), the query arrays as they are in memory."""
+    import struct
+
+    from cocircom_tpu_torch.io.binfile import write_binfile
+    from cocircom_tpu_torch.ops.field import get_field
+
+    curve = zkey.curve
+    q, r = curve.fq.p, curve.fr.p
+    n8q, n8r = curve.fq.n8, curve.fr.n8
+
+    def g1(pt):
+        return bytes(2 * n8q) if pt is None else b"".join(_mont_bytes(v, q, n8q) for v in pt)
+
+    def g2(pt):
+        return bytes(4 * n8q) if pt is None else b"".join(
+            _mont_bytes(v, q, n8q) for c in pt for v in c)
+
+    hdr = b"".join([
+        struct.pack("<I", n8q), q.to_bytes(n8q, "little"),
+        struct.pack("<I", n8r), r.to_bytes(n8r, "little"),
+        struct.pack("<III", zkey.n_vars, zkey.n_public, zkey.domain_size),
+        g1(zkey.alpha_g1), g1(zkey.beta_g1), g2(zkey.beta_g2), g2(zkey.gamma_g2),
+        g1(zkey.delta_g1), g2(zkey.delta_g2)])
+    m = zkey.matrices
+    fr = get_field(r, curve.name + ".fr", m.a_coeffs.device)
+    rec = np.dtype([("matrix", "<u4"), ("constraint", "<u4"), ("signal", "<u4"),
+                    ("value", f"V{n8r}")])
+    parts = []
+    for mid, rows, cols, coeffs in ((0, m.a_rows, m.a_cols, m.a_coeffs),
+                                    (1, m.b_rows, m.b_cols, m.b_coeffs)):
+        e = np.empty(rows.numel(), dtype=rec)
+        e["matrix"] = mid
+        e["constraint"] = rows.cpu().numpy()
+        e["signal"] = cols.cpu().numpy()
+        # Montgomery v R -> the file's v R^2 (one more factor R), LE limbs
+        vr2 = fr.to_mont(coeffs).T.contiguous().cpu().numpy()
+        e["value"] = vr2.view(f"V{n8r}")[:, 0]
+        parts.append(e)
+    pub = np.empty(zkey.n_public + 1, dtype=rec)
+    pub["matrix"] = 0
+    pub["constraint"] = m.num_constraints + np.arange(zkey.n_public + 1)
+    pub["signal"] = np.arange(zkey.n_public + 1)
+    pub["value"] = np.frombuffer(pow(2, 16 * n8r, r).to_bytes(n8r, "little"), f"V{n8r}")[0]
+    entries = np.concatenate(parts + [pub])
+    sections = [
+        (1, struct.pack("<I", 1)),
+        (2, hdr),
+        (3, g1(curve.g1_gen) * (zkey.n_public + 1)),
+        (4, struct.pack("<I", len(entries)) + entries.tobytes()),
+        (5, _points_bytes((zkey.a_query.x, zkey.a_query.y))),
+        (6, _points_bytes((zkey.b_g1_query.x, zkey.b_g1_query.y))),
+        (7, _points_bytes((zkey.b_g2_query.x0, zkey.b_g2_query.x1, zkey.b_g2_query.y0,
+                           zkey.b_g2_query.y1))),
+        (8, _points_bytes((zkey.l_query.x, zkey.l_query.y))),
+        (9, _points_bytes((zkey.h_query.x, zkey.h_query.y))),
+    ]
+    return write_binfile("zkey", 1, sections)
+
+
+def zkey_differences(a, b) -> list:
+    """The fields in which two Groth16 keys differ (the IC is not compared:
+    the synthetic key has none)."""
+    diff = [k for k in ("curve", "n_vars", "n_public", "domain_size", "pow", "alpha_g1",
+                        "beta_g1", "beta_g2", "gamma_g2", "delta_g1", "delta_g2")
+            if getattr(a, k) != getattr(b, k)]
+    arrays = {"a_query": ("x", "y"), "b_g1_query": ("x", "y"), "l_query": ("x", "y"),
+              "h_query": ("x", "y"), "b_g2_query": ("x0", "x1", "y0", "y1")}
+    for k, coords in arrays.items():
+        if not all(torch.equal(getattr(getattr(a, k), c), getattr(getattr(b, k), c))
+                   for c in coords):
+            diff.append(k)
+    ma, mb = a.matrices, b.matrices
+    if (ma.num_constraints, ma.num_instance) != (mb.num_constraints, mb.num_instance):
+        diff.append("matrices")
+    for k in ("a_rows", "a_cols", "a_coeffs", "b_rows", "b_cols", "b_coeffs"):
+        if not torch.equal(getattr(ma, k), getattr(mb, k)):
+            diff.append(k)
+    return diff
+
+
+_SPAN_ROW = re.compile(r"^ *(.+?) +(-?[\d.]+)ms +(\d+)B +(\d+)B$")
+
+
+def parse_report(err: str):
+    """A party's Tracer.report from its stderr: ({span: (seconds, sent,
+    received)}, the proof's launch counts, peak device bytes, the set-up's
+    launch counts)."""
+    spans, launches, peak, setup = {}, None, None, None
+    for line in err.splitlines():
+        if line.startswith("launches "):
+            launches = json.loads(line[len("launches "):])
+        elif line.startswith("launches_setup "):
+            setup = json.loads(line[len("launches_setup "):])
+        elif line.startswith("peak_device_bytes "):
+            peak = int(line.split()[1])
+        else:
+            m = _SPAN_ROW.match(line)
+            if m:
+                spans[m.group(1)] = (float(m.group(2)) / 1e3, int(m.group(3)), int(m.group(4)))
+    return spans, launches, peak, setup
+
+
+class CliRunner:
+    """Runs `python -m cocircom_tpu_torch.cli --device cuda ...` processes
+    for the cli phase from the repository root.  A stage starts its
+    processes together and waits for all of them; each one's stdout and
+    stderr go to files under `work/logs`.  An unexpected exit code or a
+    timeout prints the tail of every log of the stage and fails the script;
+    no process outlives its stage."""
+
+    def __init__(self, work: str):
+        self.work = work
+        self.logs = os.path.join(work, "logs")
+        os.makedirs(self.logs, exist_ok=True)
+        self.env = dict(os.environ, PYTHONUNBUFFERED="1", COCIRCOM_TRACE="1")
+        self.seconds = {}
+
+    def stage(self, name: str, argvs: list, expect=None, timeout: float = 300.0) -> list:
+        """argvs: the cli arguments of each process; expect: each one's exit
+        code (default 0).  Returns [(exit code, stdout, stderr)]."""
+        expect = expect or [0] * len(argvs)
+        procs = []
+        t0 = time.perf_counter()
+        try:
+            for i, argv in enumerate(argvs):
+                base = os.path.join(self.logs, f"{name}.{i}")
+                out, err = open(base + ".out", "w"), open(base + ".err", "w")
+                cmd = [sys.executable, "-m", "cocircom_tpu_torch.cli", "--device", "cuda", *argv]
+                procs.append((base, out, err, subprocess.Popen(
+                    cmd, cwd=ROOT, env=self.env, stdout=out, stderr=err,
+                    stdin=subprocess.DEVNULL)))
+            deadline = time.monotonic() + timeout
+            for *_, proc in procs:
+                try:
+                    proc.wait(timeout=max(deadline - time.monotonic(), 0.1))
+                except subprocess.TimeoutExpired:
+                    break
+        finally:
+            for *_, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for _, out, err, _ in procs:
+                out.close()
+                err.close()
+        self.seconds[name] = round(time.perf_counter() - t0, 2)
+        results = []
+        bad = []
+        for (base, *_, proc), want in zip(procs, expect):
+            out_text = open(base + ".out").read()
+            err_text = open(base + ".err").read()
+            results.append((proc.returncode, out_text, err_text))
+            if proc.returncode != want:
+                bad.append(base)
+        if bad or len(procs) != len(argvs):
+            for (base, *_, proc), (rc, out_text, err_text) in zip(procs, results):
+                print(f"--- {os.path.basename(base)}: exit {rc}\n{out_text[-2000:]}"
+                      f"\n{err_text[-4000:]}", file=sys.stderr)
+            fail(f"cli: stage {name}: {[os.path.basename(b) for b in bad]} exited other than "
+                 f"{expect} (-9: killed at the {timeout:.0f} s limit)")
+        return results
+
+
+def cli_mesh_configs(work: str, name: str, ports: list, certs) -> list:
+    """The three net-config files of one mesh; mutual TLS with `certs`
+    [(key, cert)] (None: plain TCP)."""
+    paths = []
+    for i in range(3):
+        cfg = {"my_id": i, "parties": [{"id": j, "host": "127.0.0.1", "port": ports[j]}
+                                       for j in range(3)]}
+        if certs:
+            cfg["key_path"] = certs[i][0]
+            for j, party in enumerate(cfg["parties"]):
+                party["cert_path"] = certs[j][1]
+        path = os.path.join(work, f"net.{name}.{i}.json")
+        with open(path, "w") as fh:
+            json.dump(cfg, fh)
+        paths.append(path)
+    return paths
+
+
+def cli_prepare_full(curve, device, inputs, work: str) -> dict:
+    """prove_full's synthetic key written as a .zkey file, read back by the
+    port's loader and held equal to the key in memory, and the three REP3
+    witness shares written as .shared files (shared_witness_from_split)."""
+    from cocircom_tpu_torch.io.shares_io import shared_witness_from_split
+    from cocircom_tpu_torch.io.zkey import read_groth16_zkey
+
+    zkey, _, _, shares, _ = inputs
+    t0 = time.perf_counter()
+    data = write_groth16_zkey(zkey)
+    with open(os.path.join(work, CLI_FULL_FILES[0]), "wb") as fh:
+        fh.write(data)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = read_groth16_zkey(data, device=device)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    diff = zkey_differences(zkey, back)
+    check(not diff, f"cli: the .zkey read back differs from the key in memory in {diff}")
+    del back, data
+    for i, sw in enumerate(shares):
+        with open(os.path.join(work, CLI_FULL_FILES[1 + i]), "wb") as fh:
+            fh.write(shared_witness_from_split("rep3", curve, sw))
+    return {"zkey_bytes": os.path.getsize(os.path.join(work, CLI_FULL_FILES[0])),
+            "zkey_write_s": round(write_s, 2), "zkey_read_back_s": round(read_s, 2),
+            "zkey_equal": True, "constraints": zkey.matrices.num_constraints,
+            "domain_size": zkey.domain_size, "witness_publics": shares[0].public_inputs}
+
+
+def tls_status():
+    """None when gen-cert can run here, else why not."""
+    try:
+        import cryptography  # noqa: F401
+    except ImportError as e:
+        return f"unavailable: {e}"
+    return None
+
+
+def cli_small(curve, run: CliRunner, work: str, meshes: dict) -> dict:
+    """The small pipelines through the CLI, each subcommand its own
+    process(es): setup (groth16, plonk) from write_r1cs's file of
+    cli_chain, split-input twice (b and c from two providers), merge, the
+    REP3 witness extension (opened here and held to run_host), REP3, Shamir
+    and PLONK proofs from its shares and a plain one from a plain .wtns;
+    every proof accepted by verify and refused with a changed public input,
+    the parties' proofs byte-equal."""
+    from cocircom_tpu_torch.io.shares_io import shared_witness_to_split
+    from cocircom_tpu_torch.mpc.driver import PlainDriver
+    from cocircom_tpu_torch.mpc.rep3 import combine_field_shares
+    from cocircom_tpu_torch.ops.field import get_field
+    from cocircom_tpu_torch.vm.compiler import compile_circom
+    from cocircom_tpu_torch.vm.mpc_vm import WitnessExtension
+
+    w = lambda name: os.path.join(work, name)  # noqa: E731
+    inputs = {"a": 3, "b": 5, "c": 7}
+    r1cs, vals = cli_chain(curve, SMALL_MULS, **inputs)
+    with open(w("chain.r1cs"), "wb") as fh:
+        fh.write(write_r1cs(r1cs))
+    src = CLI_CHAIN_SRC % (SMALL_MULS - 1)
+    with open(w("chain.circom"), "w") as fh:
+        fh.write(src)
+    for name, d in (("input", inputs), ("p1", {"a": 3, "b": 5}), ("p2", {"a": 3, "c": 7})):
+        with open(w(f"{name}.json"), "w") as fh:
+            json.dump(d, fh)
+    host = WitnessExtension(PlainDriver(curve, device="cuda"), compile_circom(src, curve))
+    check(host.run_host(inputs) == vals, "cli: SplitChain's host witness is not cli_chain's")
+
+    a = [["setup", "groth16", w("chain.r1cs"), w("g16.zkey"), "--vk", w("g16.vk.json"),
+          "--seed", "chip_smoke_cli"],
+         ["setup", "plonk", w("chain.r1cs"), w("plonk.zkey"), "--vk", w("plonk.vk.json"),
+          "--seed", "chip_smoke_cli"],
+         ["split-input", "--input", w("p1.json"), "--circuit", w("chain.circom"),
+          "--out-dir", w("p1")],
+         ["split-input", "--input", w("p2.json"), "--circuit", w("chain.circom"),
+          "--out-dir", w("p2")],
+         ["generate-witness", "--circuit", w("chain.circom"), "--input", w("input.json"),
+          "--out", w("plain.wtns")]]
+    run.stage("setup_split", a)
+    b = [["merge-input-shares", w(f"p1/p1.json.{i}.shared"), w(f"p2/p2.json.{i}.shared"),
+          "--out", w(f"merged.{i}.shared")] for i in range(3)]
+    b.append(["split-witness", "--witness", w("plain.wtns"), "--r1cs", w("chain.r1cs"),
+              "--protocol", "plain", "--out-dir", w("plain")])
+    run.stage("merge", b)
+    c = [["generate-witness", "--protocol", "rep3", "--circuit", w("chain.circom"),
+          "--input", w(f"merged.{i}.shared"), "--net-config", meshes["witness"][i],
+          "--out", w(f"sw.{i}.shared")] for i in range(3)]
+    c.append(["generate-proof", "groth16", "--zkey", w("g16.zkey"), "--witness",
+              w("plain/witness.wtns.0.shared"), "--out", w("plain.proof.json"),
+              "--public-out", w("public.json")])
+    res_c = run.stage("witness", c)
+
+    # the three shared witnesses, opened here, equal run_host at every slot
+    fr = get_field(curve.fr.p, curve.name + ".fr", "cuda")
+    sws = []
+    for i in range(3):
+        with open(w(f"sw.{i}.shared"), "rb") as fh:
+            sws.append(shared_witness_to_split(fh.read(), device="cuda"))
+    check(all(s[0] == "rep3" and s[2].public_inputs == vals[:3] for s in sws),
+          "cli: the shared witnesses' publics are not the chain's")
+    opened = combine_field_shares(fr, [s[2].witness for s in sws])
+    check([int(v) for v in fr.from_limbs(fr.from_mont(opened))] == vals[3:],
+          "cli: the opened REP3 witness differs from run_host")
+    del sws, opened
+
+    with open(w("public.json")) as fh:
+        publics = json.load(fh)
+    check(publics == [str(v) for v in vals[1:3]], f"cli: public.json holds {publics}")
+    with open(w("bad_public.json"), "w") as fh:
+        json.dump([publics[0], str(int(publics[1]) + 1)], fh)
+
+    def verify(system, proof, vk):
+        return [["verify", system, "--proof", proof, "--vk", vk, "--public", w("public.json")],
+                ["verify", system, "--proof", proof, "--vk", vk, "--public", w("bad_public.json")]]
+
+    d = [["generate-proof", "groth16", "--zkey", w("g16.zkey"), "--witness", w(f"sw.{i}.shared"),
+          "--net-config", meshes["groth16"][i], "--out", w(f"rep3.proof.{i}.json")]
+         for i in range(3)]
+    d += [["translate-witness", "--witness", w(f"sw.{i}.shared"), "--net-config",
+           meshes["translate"][i], "--out", w(f"shamir.{i}.shared")] for i in range(3)]
+    d += [["generate-proof", "plonk", "--zkey", w("plonk.zkey"), "--witness", w(f"sw.{i}.shared"),
+           "--net-config", meshes["plonk"][i], "--out", w(f"plonk.proof.{i}.json")]
+          for i in range(3)]
+    d += verify("groth16", w("plain.proof.json"), w("g16.vk.json"))
+    res_d = run.stage("prove", d, expect=[0] * 9 + [0, 1])
+    e = [["generate-proof", "groth16", "--zkey", w("g16.zkey"), "--witness",
+          w(f"shamir.{i}.shared"), "--net-config", meshes["shamir"][i], "--threshold", "1",
+          "--out", w(f"shamir.proof.{i}.json")] for i in range(3)]
+    e += verify("groth16", w("rep3.proof.0.json"), w("g16.vk.json"))
+    e += verify("plonk", w("plonk.proof.0.json"), w("plonk.vk.json"))
+    res_e = run.stage("shamir_verify", e, expect=[0] * 3 + [0, 1, 0, 1])
+    res_f = run.stage("verify_shamir", verify("groth16", w("shamir.proof.0.json"),
+                                              w("g16.vk.json")), expect=[0, 1])
+    for rc, out, _ in res_d[9:] + res_e[3:] + res_f:
+        check(("verification: OK" in out) == (rc == 0), f"cli: verify printed {out!r}")
+    for name in ("rep3.proof", "shamir.proof", "plonk.proof"):
+        files = []
+        for i in range(3):
+            with open(w(f"{name}.{i}.json"), "rb") as fh:
+                files.append(fh.read())
+        check(files[0] == files[1] == files[2], f"cli: the parties' {name} files differ")
+
+    launches = {}
+    for _, _, err in res_c[3:] + res_d[:3] + res_d[6:9] + res_e[:3]:
+        for k, v in (parse_report(err)[1] or {}).items():
+            launches[k] = launches.get(k, 0) + v
+    return {"constraints": SMALL_MULS, "witness_equals_host": True,
+            "verified": ["plain", "rep3", "shamir", "plonk_rep3"],
+            "tamper_rejected": ["plain", "rep3", "shamir", "plonk_rep3"],
+            "proofs_identical": True, "launches": launches}
+
+
+def cli_full(curve, run: CliRunner, work: str, mesh: list) -> dict:
+    """Three generate-proof groth16 processes at 2^20 over the mesh: proofs
+    byte-equal and on their curves; each party's report holds the startup,
+    zkey read and prove spans, bytes, peak device memory and launches, and
+    shows every kernel of CLI_FULL_KERNELS launched."""
+    from cocircom_tpu_torch.io.jsonio import parse_groth16_proof
+
+    w = lambda name: os.path.join(work, name)  # noqa: E731
+    t0 = time.perf_counter()
+    res = run.stage("full", [["generate-proof", "groth16", "--zkey", w(CLI_FULL_FILES[0]),
+                              "--witness", w(CLI_FULL_FILES[1 + i]), "--net-config", mesh[i],
+                              "--out", w(f"full.proof.{i}.json")] for i in range(3)],
+                    timeout=600)
+    wall = time.perf_counter() - t0
+    files = []
+    for i in range(3):
+        with open(w(f"full.proof.{i}.json"), "rb") as fh:
+            files.append(fh.read())
+    check(files[0] == files[1] == files[2], "cli: the 2^20 parties' proof files differ")
+    check(on_curve(curve, parse_groth16_proof(files[0])), "cli: a 2^20 proof point is off its curve")
+    parties, total = [], {}
+    for i, (_, _, err) in enumerate(res):
+        spans, launches, peak, setup = parse_report(err)
+        missing = [k for k in CLI_FULL_KERNELS if not (launches or {}).get(k)]
+        check(not missing, f"cli: party {i}'s report shows no launch of {missing}")
+        check(all(k in spans for k in CLI_SPANS), f"cli: party {i}'s report lacks a span: {spans}")
+        prove = spans["generate-proof groth16"]
+        parties.append({**{v: round(spans[k][0], 3) for k, v in CLI_SPANS.items()},
+                        "spans": {k: round(v[0], 3) for k, v in spans.items()
+                                  if k not in CLI_SPANS},
+                        "sent_bytes": prove[1], "recv_bytes": prove[2],
+                        "peak_device_bytes": peak, "launches": launches,
+                        "launches_setup": setup})
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return {"parties": parties, "wall_spawn_to_last_exit_s": round(wall, 3),
+            "proofs_identical": True, "on_curve": True, "launches": total}
+
+
+def msm_setup_launches(curve, device, sizes) -> dict:
+    """Launch counts of the G1 MSM engine's one-time state in a new process:
+    the bucket-init point D and one correction E*D for each window width
+    that MSMs of `sizes` points take.  Three party threads of one process
+    share it (msm_engine is cached per process); three party processes
+    each build their own."""
+    from cocircom_tpu_torch.ops import kernels
+    from cocircom_tpu_torch.ops.curve import g1_ops
+    from cocircom_tpu_torch.ops.msm import MSM
+
+    bits = curve.fr.p.bit_length()
+    eng = MSM(g1_ops(curve, device), scalar_bits=bits)
+    widths = sorted({eng._window_c(min(n, 1 << eng.CHUNK_LOG)) for n in sizes})
+    kernels.reset_launch_counts()
+    eng._init_affine()
+    for c in widths:
+        eng._madd_correction(bits, c)
+    torch.cuda.synchronize()
+    return {"window_widths": widths,
+            "launches": {k: v for k, v in kernels.launch_counts().items() if v}}
+
+
+def phase_cli(curve, device, work: str, prepared: dict, warm, smi_line: str) -> dict:
+    """The port's CLI as separate party processes on the card (see the
+    module docstring).  `warm` is this run's in-process warm prove_full:
+    (wall seconds, launch counts or None).  Returns the summed launch counts
+    of every generate-proof process."""
+    free, total = torch.cuda.mem_get_info()
+    emit({"phase": "cli_memory", "free_bytes": free, "total_bytes": total,
+          "allocated_bytes": torch.cuda.memory_allocated()})
+    run = CliRunner(work)
+    tls = tls_status()
+    certs = None
+    cert_argv = [["gen-cert", "--key-out", os.path.join(work, f"key{i}.pem"),
+                  "--cert-out", os.path.join(work, f"cert{i}.pem")] for i in range(3)]
+    if tls is None:
+        run.stage("gen_cert", cert_argv)
+        certs = [(os.path.join(work, f"key{i}.pem"), os.path.join(work, f"cert{i}.pem"))
+                 for i in range(3)]
+    else:
+        res = run.stage("gen_cert", cert_argv, expect=[1] * 3)
+        check(all("cryptography" in err for _, _, err in res),
+              "cli: gen-cert failed without naming the missing package")
+    ports = free_ports(3 * 6)
+    meshes = {name: cli_mesh_configs(work, name, ports[3 * k: 3 * k + 3], certs)
+              for k, name in enumerate(("witness", "groth16", "translate", "plonk", "shamir",
+                                        "full"))}
+    small = cli_small(curve, run, work, meshes)
+    full = cli_full(curve, run, work, meshes["full"])
+    # the K4 launches of the three processes against the warm in-process
+    # proof: each process builds its own MSM engine state
+    setup = msm_setup_launches(curve, device, (len(prepared["witness_publics"]) - 1,
+                                               prepared["domain_size"]))
+    warm_s, warm_counts = warm
+    compare = None
+    if warm_counts is not None:
+        compare = {"ec_add_cli": full["launches"].get("ec_add", 0),
+                   "ec_add_warm_prove_full": warm_counts["ec_add"],
+                   "ec_add_msm_setup_x3": 3 * setup["launches"].get("ec_add", 0)}
+    emit({"phase": "cli", "tls": "mutual, pinned certificates" if tls is None else tls,
+          "small": small, "full": {**prepared, **full}, "stage_seconds": run.seconds,
+          "in_process_prove_full_warm_s": warm_s,
+          "in_process_prove_full_warm_launches":
+              None if warm_counts is None else {k: v for k, v in warm_counts.items() if v},
+          "msm_setup_per_process": setup, "ec_add_cli_vs_warm": compare, "device": smi_line})
+    return {k: small["launches"].get(k, 0) + full["launches"].get(k, 0)
+            for k in set(small["launches"]) | set(full["launches"])}
+
+
+def free_ports(n: int) -> list:
+    """n distinct free localhost ports (bound to port 0 together, released)."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
 def ptxas_report(build_dir) -> dict:
     """Registers, stack and spill bytes of every __global__ instantiation,
     from the `-Xptxas -v` logs the build keeps beside the libraries."""
@@ -2183,7 +2763,7 @@ def main() -> None:
               file=sys.stderr)
         sys.exit(2)
     device = "cuda"
-    full_sized = [p for p in ("prove_full", "prove_sharded", "prove_shamir", "profile")
+    full_sized = [p for p in ("prove_full", "prove_sharded", "prove_shamir", "profile", "cli")
                   if p in phases]
     if full_sized and args.full_log < 18:
         fail("prove_full and prove_sharded run at 2^18 constraints or more")
@@ -2216,20 +2796,29 @@ def main() -> None:
     zero = {k: 0 for k in kernels.COUNT_KEYS}
     runs = {"prove_small": zero, "prove_full_cold": zero, "prove_sharded": zero,
             "prove_shamir": zero, "prove_bls": zero, "plonk_small": zero, "plonk_full": zero,
-            "vm_small": zero, "vm_full": zero}
+            "vm_small": zero, "vm_full": zero, "cli": zero}
     if "prove_small" in phases:
         runs["prove_small"] = phase_prove_small(curve, device, SMALL_MULS)
     inputs = None
     if full_sized:
         inputs = full_inputs(curve, device, args.full_log, torch.Generator().manual_seed(4242))
+    warm_prove_full, warm_counts = "not run", None
     if "prove_full" in phases:
-        runs["prove_full_cold"] = phase_prove_full(curve, device, args.full_log, inputs)
+        runs["prove_full_cold"], warm_prove_full, warm_counts = phase_prove_full(
+            curve, device, args.full_log,
+                                                                    inputs)
     if "prove_sharded" in phases:
         runs["prove_sharded"] = phase_prove_sharded(curve, device, args.full_log, inputs)
     if "prove_shamir" in phases:
         runs["prove_shamir"] = phase_prove_shamir(curve, device, args.full_log, inputs)
     if "profile" in phases:
         phase_profile(curve, device, args.full_log, inputs)
+    cli_work = cli_prepared = None
+    if "cli" in phases:
+        # the 2^20 key and shares go to files now; the parties start after
+        # the other phases, once this process has let go of the card
+        cli_work = tempfile.mkdtemp(prefix=".chip_smoke_cli_", dir=ROOT)
+        cli_prepared = cli_prepare_full(curve, device, inputs, cli_work)
     del inputs
     if "prove_bls" in phases:
         runs["prove_bls"] = phase_prove_bls(device, BLS_MULS)
@@ -2241,9 +2830,17 @@ def main() -> None:
         runs["vm_small"] = phase_vm_small(device)
     if "vm_full" in phases:
         runs["vm_full"] = phase_vm_full(curve, device, VM_FULL_N)
+    if "cli" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            runs["cli"] = phase_cli(curve, device, cli_work, cli_prepared,
+                                    (warm_prove_full, warm_counts), smi_line)
+        finally:
+            shutil.rmtree(cli_work, ignore_errors=True)
     if "graft" in phases:
         phase_graft(curve, device)
-    counts = {k: sum(r[k] for r in runs.values()) for k in kernels.COUNT_KEYS}
+    counts = {k: sum(r.get(k, 0) for r in runs.values()) for k in kernels.COUNT_KEYS}
     emit({"phase": "launches", **{name: {k: v for k, v in r.items() if v}
                                   for name, r in runs.items()}})
 

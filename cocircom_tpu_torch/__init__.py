@@ -14,8 +14,11 @@ Layer map (same sub-package names as the JAX package):
   ops/ntt.py, ops/msm.py      NTT, Pippenger MSM
   ops/kernels.py, csrc/       CUDA kernel loader, wrappers and sources
   parallel/sharded.py         MSM and NTT engines over a list of devices
-  mpc/                        Plain and REP3 drivers, in-process network
-  io/                         snarkjs artifacts (r1cs, wtns, zkey)
+  mpc/                        Plain, REP3 and Shamir drivers, in-process and
+                              TCP/TLS networks, the wire codec
+  io/                         snarkjs artifacts (r1cs, wtns, zkey), .shared files
+  vm/                         the circom witness extension
+  cli.py                      the command line (python -m cocircom_tpu_torch.cli)
   snark/                      co-Groth16 prover, setup, pairing verifier
   convert.py                  numpy <-> port tensors (tests, carried data)
   graft_entry.py              the prover-core step, one device and several

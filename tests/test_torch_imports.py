@@ -29,7 +29,8 @@ assert "cocircom_tpu_torch.parallel.sharded" in names and \
     "cocircom_tpu_torch.graft_entry" in names, names
 for m in ("mpc.shamir", "mpc.bridges", "ops.keccak", "io.jsonio", "io.plonk_zkey",
           "snark.plonk", "snark.plonk_setup", "snark.plonk_verify", "mpc.rep3_binary",
-          "vm.lexer", "vm.parser", "vm.algebra", "vm.compiler", "vm.mpc_vm"):
+          "vm.lexer", "vm.parser", "vm.algebra", "vm.compiler", "vm.mpc_vm",
+          "cli", "mpc.codec", "mpc.net", "io.shares_io", "vm.fit_layout"):
     assert "cocircom_tpu_torch." + m in names, m
 print("MODULES", len(names))
 print("BAD", bad)
@@ -116,6 +117,19 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         split_input_rep3(BN254, {"a": 1, "b": 2}, ["a"], seed=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.binary_share_from_reference((limbs16, limbs16))
+    # the artifacts, the mesh and the command line
+    from cocircom_tpu_torch import cli
+    from cocircom_tpu_torch.io.shares_io import read_shared_input, shared_witness_to_split
+    from cocircom_tpu_torch.mpc.net import TcpNetwork
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TcpNetwork(0, [("127.0.0.1", 1), ("127.0.0.1", 2)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        read_shared_input(b"")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        shared_witness_to_split(b"")
+    with pytest.raises(SystemExit, match="CUDA"):
+        cli.main(["generate-proof", "groth16", "--zkey", "z", "--witness", "w", "--out", "o"])
     assert split_input_rep3(BN254, {"a": 1, "b": 2}, ["a"], seed=1, device="cpu")[0] \
         .shared_inputs["b"].a.device.type == "cpu"
     assert all(s.device.type == "cpu"

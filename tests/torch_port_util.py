@@ -112,3 +112,43 @@ def plonk_chain(curve, r1cs_cls, n_mul: int, a_val: int):
     cons = list(r1cs.constraints) + [([(2, 1), (3, 1), (4, 1)], [(0, 1)], [(s, 1)])]
     return dataclasses.replace(r1cs, n_wires=len(vals), n_labels=len(vals),
                                n_constraints=len(cons), constraints=cons), vals
+
+
+def run_tcp(fn, n: int = 3, tls=None, timeout: float = 300.0) -> list:
+    """fn(party_id, net) in n threads named party-<i>, each over its own
+    `TcpNetwork` on localhost with device="cpu" (tls: a list of n TlsConfig
+    or None); returns the results and raises the first error.  A party's
+    network is closed when it ends, so a failed party ends its peers'
+    receives too."""
+    import threading
+
+    from chip_smoke import free_ports
+    from cocircom_tpu_torch.mpc.net import TcpNetwork
+
+    addrs = [("127.0.0.1", p) for p in free_ports(n)]
+    results, errors = [None] * n, [None] * n
+
+    def party(i):
+        try:
+            net = TcpNetwork(i, addrs, tls=None if tls is None else tls[i], device="cpu")
+            try:
+                results[i] = fn(i, net)
+            finally:
+                net.close()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors[i] = e
+
+    threads = [threading.Thread(target=party, args=(i,), name=f"party-{i}") for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    assert not any(t.is_alive() for t in threads), "a party thread did not finish"
+    failed = [(i, e) for i, e in enumerate(errors) if e is not None]
+    if failed:
+        # a party's error often only ends its peers' receives: name them all
+        first = failed[0][1]
+        for i, e in failed[1:]:
+            first.add_note(f"party {i} failed too: {e!r}")
+        raise first
+    return results
