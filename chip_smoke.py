@@ -74,16 +74,17 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  (COCIRCOM_INSECURE_DETERMINISTIC=1 for those calls only) the
                  three proofs' JSON byte-equal; the same over BLS12-381 at
                  100 gates, Plain and REP3
-  plonk_full     a PLONK key of a 2^20-gate multiplier chain built on the card
+  plonk_full     a PLONK key of a 2^PLONK_LOG-gate multiplier chain built on the card
                  with a real tau from a seed (p_tau by a batched scalar
                  multiplication, selectors and sigma from the gate layout and
-                 the copy cycles, iNTT, NTT on the 2^22 extended domain,
+                 the copy cycles, iNTT, NTT on the 4x extended domain,
                  commitments by the MSM); a 3-party REP3 proof cold and warm
-                 and a Shamir one, each accepted by verify_plonk; each 2^22
-                 transform three `ntt_columns` launches and nothing else,
-                 one each way held to the plain version of its levels, and
-                 one `mont_mul` at round 3's widest product (8, 2^27) to the
-                 plain version;
+                 and a Shamir one, each accepted by verify_plonk; each
+                 extended-domain transform `ntt_columns` launches and
+                 nothing else, one each way held to the plain version of
+                 its levels, and one `mont_mul` at round 3's widest product
+                 (8, 32 x 4 n) to the plain version; PLONK_LOG = 18 (cut
+                 from 2^20 so the whole script fits its time limit);
                  mont_mul, ntt_columns, ec_add and ec_madd launched; walls,
                  party 0's five round spans, peak device memory, the key's
                  build seconds, launches per kernel
@@ -102,11 +103,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  shared witness with the zkey of groth16_setup(multiplier_chain),
                  the three proofs equal, verified, a changed public input
                  refused; mont_mul launched by the VM
-  vm_full        the witness extension at a real size: 1,024 cells, each a
-                 Num2Bits(254), a signed a < b, an a == b, (a & b) ^ (a | b)
-                 (binary-resident, b2a exit), a * b, a ** 5 and a guarded
-                 a / b (about 792,000 ops, 267,265 witness slots), inputs from
-                 a seed; host compile and run_host timed apart; REP3 on the
+  vm_full        the witness extension at a larger size: VM_FULL_N cells (256,
+                 cut from 1,024 so the whole script fits its time limit), each a Num2Bits(254), a signed a < b, an
+                 a == b, (a & b) ^ (a | b) (binary-resident, b2a exit),
+                 a * b, a ** 5 and a guarded a / b (about 774 ops and 261
+                 witness slots a cell), inputs from a seed; host compile and run_host timed apart; REP3 on the
                  card cold and warm, the whole witness opened and equal to
                  run_host at every slot; walls, party 0's rounds and bytes,
                  launches, peak device memory
@@ -135,6 +136,38 @@ Phases (each prints one JSON line; any failure exits non-zero):
                  in-process prove_full; the K4 launches of the three
                  processes beside the warm in-process proof's and three
                  times the MSM engine's per-process set-up
+  honk_small     co-noir at a small size (circuits built in code by
+                 tests/torch_port_util.py): the co-ACVM under REP3 on a
+                 circuit with a ROM block read at a shared index and a RAM
+                 block written and read at shared indices (Rep3Lut), opened
+                 and held to PlainNoirDriver's witness; from its shares a
+                 REP3 co-UltraHonk proof (provider mode: LUT reads and
+                 writes and oblivious sorts in the builder), and REP3 and
+                 Shamir proofs of a 16-gate squaring chain, each byte-equal
+                 to the port's plain prover, verified, a changed public
+                 input refused; a FileCrs commit of 64 coefficients through
+                 driver_msm equal to TestCrs.commit (K5 must launch)
+  honk_full      co-UltraHonk under REP3 at n = 2^20 rows (--honk-log): a
+                 Poseidon-style permutation chain (x^5 S-boxes as multiply
+                 gates, a width-4 linear layer as quad gates, 65,534
+                 rounds, 13 padding rows) from a seed; three party threads,
+                 each building its own circuit and keys on the host, once
+                 (noir_cli's three processes prove the same circuit again);
+                 party 0's spans (builder, keys, the oink rounds, sumcheck,
+                 zeromorph and KZG), rounds and bytes, peak device memory,
+                 launches (K1 and K4 must show); the vk by create_keys with
+                 TestCrs evaluating on the card; the host verifier accepts
+                 and refuses a changed public input
+  noir_cli       the noir CLI (python -m cocircom_tpu_torch.noir.cli) as
+                 separate party processes over mutual-TLS meshes: every
+                 subcommand on the small circuits (split-input by two
+                 providers, merge-input-shares, generate-witness,
+                 translate-witness, split-witness, generate-proof, create-vk,
+                 verify, a changed public input refused), then honk_full's
+                 chain written as an ACIR program JSON and a witness stack,
+                 split-witness and three generate-proof processes at 2^20
+                 with create-vk beside them: proofs byte-equal and verified;
+                 each party's spans, bytes, peak memory and launches
   graft          graft_entry.entry() and graft_entry.dryrun_multichip(2)
 The launch counts are set to 0 just before each phase's first 3-party proof
 and read just after it, so they hold the proving paths alone (the cli
@@ -153,9 +186,14 @@ Options (for shorter measurement runs):
                     one-device drivers and one with sharded drivers under
                     torch.profiler, which prints for each the card's busy
                     share of the wall time, the device time by kernel and
-                    the NTT kernels' device time
+                    the NTT kernels' device time; and `honk_profile`,
+                    one honk_full proof at 2^--honk-log rows under
+                    torch.profiler: the card's busy share and the device
+                    time by kernel
   --full-log N      size of prove_full, prove_sharded and prove_shamir (default
                     20; never below 18)
+  --honk-log N      rows (log2) of honk_full and noir_cli's full proof
+                    (default 20)
 
 Integer peak used for the bound: the card's table gives 67 TFLOP/s float32
 outside the tensor cores, i.e. 33.5e12 fused multiply-adds a second on 128
@@ -200,15 +238,23 @@ INT_MAD_RATE = 16.75e12
 SMALL_MULS = 300  # constraints of prove_small's multiplier chain
 BLS_MULS = 100    # constraints of prove_bls's multiplier chain
 PLONK_SMALL_MULS = 200  # chain gates of plonk_small over BN254 (domain 256)
-PLONK_LOG = 20          # gates (log2) of plonk_full's chain
+PLONK_LOG = 18          # gates (log2) of plonk_full's chain: cut from 2^20 so the whole
+                        # script, with the co-noir phases, stays within its time limit
 
 ALL_PHASES = ("build", "device", "kernels", "prove_small", "prove_full", "prove_sharded",
               "prove_shamir", "prove_bls", "plonk_small", "plonk_full", "vm_small", "vm_full",
-              "cli", "graft")
-OPTIONAL_PHASES = ("profile",)
+              "cli", "honk_small", "honk_full", "noir_cli", "graft")
+OPTIONAL_PHASES = ("profile", "honk_profile")
+
+
+_T0 = time.perf_counter()
 
 
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line also gets `t_s`, the seconds since
+    the script started, so the lines give each phase's share of the run."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1650,7 +1696,8 @@ def phase_plonk_full(curve, device, log_n: int) -> dict:
     # K1 at round 3's widest product (Shamir: 32 vectors of 4n in one
     # mont_mul): one launch, equal to the plain version a piece at a time
     wide = 32 << (log_n + 2)
-    a, b = (torch.cat([rand_field(fr, (1 << 24,), gen) for _ in range(wide >> 24)], dim=1)
+    piece = min(wide, 1 << 24)
+    a, b = (torch.cat([rand_field(fr, (piece,), gen) for _ in range(wide // piece)], dim=1)
             for _ in range(2))
     kernels.reset_launch_counts()
     got = fr.mont_mul(a, b)
@@ -1838,7 +1885,7 @@ VM_SHAMIR = ("acc", "arith", "chain")  # the tapes that need no binary domain
 # vm_full: N cells, each a 254-bit decomposition, a signed comparison, an
 # equality, a binary-resident bit chain, a product, a fifth power and a
 # guarded division
-VM_FULL_N = 1024
+VM_FULL_N = 256  # cells: cut from 1,024 so the whole script fits its time limit
 VM_FULL_SRC = """
 pragma circom 2.0.0;
 template Num2Bits(n) {
@@ -2187,6 +2234,42 @@ def phase_profile(curve, device, log_n: int, inputs) -> None:
               "ntt_kernels": ntt})
 
 
+def phase_honk_profile(curve, device, log_n: int) -> None:
+    """One honk_full proof (REP3, three party threads, 2^log_n rows) under
+    torch.profiler (device activity only), after an unprofiled one: the
+    share of the wall time in which the card ran a kernel, and the device
+    time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cocircom_tpu_torch.honk.builder import acir_to_format
+    from cocircom_tpu_torch.mpc.rep3 import share_field_vec
+    from cocircom_tpu_torch.ops.field import get_field
+
+    (c, _abi, w, _), _ = honk_chain(noir_fixtures(), log_n)
+    af = acir_to_format(c)
+    f = get_field(curve.fr.p, curve.name + ".fr", device)
+    shares = share_field_vec(f, f.encode(w), seed=67)
+    honk_prove(curve, device, af, len(w), shares, "rep3", False, False)   # not profiled
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall, _, _ = honk_prove(curve, device, af, len(w), shares, "rep3", False, False)
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((e.key, int(e.count), us / 1e3))
+    check(rows, "honk_profile: the profiler recorded no device time")
+    rows.sort(key=lambda r: -r[2])
+    busy_ms = sum(r[2] for r in rows)
+    emit({"phase": "honk_profile", "log_n": log_n, "prove_profiled_s": round(wall, 3),
+          "device_busy_ms": round(busy_ms, 1),
+          "device_busy_share": round(busy_ms / (wall * 1e3), 4),
+          "device_kernel_launches": sum(r[1] for r in rows),
+          "top_kernels": [{"name": k[:80], "count": cnt, "ms": round(ms, 1)}
+                          for k, cnt, ms in rows[:20]]})
+
+
 # --------------------------------------------------------------------- main
 
 # ------------------------------------------------------------------ phase: cli
@@ -2385,14 +2468,16 @@ def parse_report(err: str):
 
 class CliRunner:
     """Runs `python -m cocircom_tpu_torch.cli --device cuda ...` processes
-    for the cli phase from the repository root.  A stage starts its
+    (or those of another CLI module: the noir CLI for noir_cli) from the
+    repository root.  A stage starts its
     processes together and waits for all of them; each one's stdout and
     stderr go to files under `work/logs`.  An unexpected exit code or a
     timeout prints the tail of every log of the stage and fails the script;
     no process outlives its stage."""
 
-    def __init__(self, work: str):
+    def __init__(self, work: str, module: str = "cocircom_tpu_torch.cli"):
         self.work = work
+        self.module = module
         self.logs = os.path.join(work, "logs")
         os.makedirs(self.logs, exist_ok=True)
         self.env = dict(os.environ, PYTHONUNBUFFERED="1", COCIRCOM_TRACE="1")
@@ -2408,7 +2493,7 @@ class CliRunner:
             for i, argv in enumerate(argvs):
                 base = os.path.join(self.logs, f"{name}.{i}")
                 out, err = open(base + ".out", "w"), open(base + ".err", "w")
-                cmd = [sys.executable, "-m", "cocircom_tpu_torch.cli", "--device", "cuda", *argv]
+                cmd = [sys.executable, "-m", self.module, "--device", "cuda", *argv]
                 procs.append((base, out, err, subprocess.Popen(
                     cmd, cwd=ROOT, env=self.env, stdout=out, stderr=err,
                     stdin=subprocess.DEVNULL)))
@@ -2721,6 +2806,456 @@ def phase_cli(curve, device, work: str, prepared: dict, warm, smi_line: str) -> 
             for k in set(small["launches"]) | set(full["launches"])}
 
 
+# ------------------------------------------------------------ phases: co-noir
+
+# n = 2^20 rows for honk_full: the Poseidon-style chain has 16 opcodes a
+# round, each one row, and 19 rows besides (the zero row, two public
+# inputs, 16 rows that make every selector non-zero): 65,534 rounds are
+# 1,048,563 rows, 13 of padding.
+HONK_LOG = 20
+NOIR_CLI = "cocircom_tpu_torch.noir.cli"
+NOIR_CLI_KERNELS = ("mont_mul", "ec_add")
+
+
+def honk_rounds(log_n: int) -> int:
+    return ((1 << log_n) - 19) // 16
+
+
+_HONK_CHAINS: dict = {}
+
+
+def honk_chain(u, log_n: int):
+    """honk_full's circuit (circuit, abi, witness, inputs) and the seconds
+    it took to make: made once a process, noir_cli writes the same one."""
+    if log_n not in _HONK_CHAINS:
+        t0 = time.perf_counter()
+        chain = u.poseidon_chain(honk_rounds(log_n), 6464)
+        _HONK_CHAINS[log_n] = (chain, time.perf_counter() - t0)
+    return _HONK_CHAINS[log_n]
+
+
+def noir_fixtures():
+    """tests/torch_port_util.py: the ACIR circuits built in code and the
+    ACIR writer, which neither package has (the port reads ACIR but writes
+    none).  The import keeps this process's torch thread count."""
+    threads = torch.get_num_threads()
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    try:
+        import torch_port_util
+    finally:
+        sys.path.remove(os.path.join(ROOT, "tests"))
+        torch.set_num_threads(threads)
+    return torch_port_util
+
+
+def honk_prove(curve, device, af, nvars: int, shares, protocol: str, provider: bool,
+               traced: bool):
+    """Three party threads, party i building its own UltraCircuitBuilder
+    over the ACIR format `af` (provider mode, MpcBuilderValues, when
+    `provider`) and proving with CoUltraHonk from shares[i] under
+    `protocol` (rep3 or shamir).  Returns (proofs, wall seconds, party 0's
+    span seconds and bytes, party 0's rounds to the next party)."""
+    from cocircom_tpu_torch.honk.builder import UltraCircuitBuilder
+    from cocircom_tpu_torch.honk.co_builder import MpcBuilderValues
+    from cocircom_tpu_torch.honk.co_prover import CoUltraHonk
+    from cocircom_tpu_torch.honk.crs import TestCrs
+    from cocircom_tpu_torch.mpc.rep3 import Rep3Driver
+    from cocircom_tpu_torch.mpc.runner import run_parties
+    from cocircom_tpu_torch.mpc.shamir import ShamirDriver
+    from cocircom_tpu_torch.utils.trace import Tracer
+
+    rows, rounds = [], []
+
+    def party(i, net):
+        cnet = counting_net(net)
+        d = (Rep3Driver(curve, cnet, device=device) if protocol == "rep3"
+             else ShamirDriver(curve, cnet, 1, device=device))
+        tr = Tracer(enabled=traced and i == 0, net=cnet, sync=torch.cuda.synchronize)
+        with tr.span("builder"):
+            b = UltraCircuitBuilder(af, [0] * nvars,
+                                    mpc=MpcBuilderValues(d, shares[i]) if provider else None)
+        proof = CoUltraHonk(d, TestCrs(), tracer=tr).prove(b, shares[i])
+        if i == 0:
+            rows.extend(tr.rows)
+            rounds.append(cnet.rounds)
+        return proof
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proofs = run_parties(party, 3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    spans = {name: {"s": round(dt, 3), "sent_bytes": sent, "recv_bytes": recvd}
+             for _, name, dt, sent, recvd in rows}
+    return proofs, wall, spans, rounds[0]
+
+
+def provider_plain_proof(curve, device, c, w: list):
+    """The port's plain UltraHonk prover over a circuit's provider-mode
+    structure (the oblivious ROM/RAM gates a co-prover proves): the builder
+    runs with a plain driver, is finalized, every shared value is filled
+    in on the host (the sorted RAM rows' access types, which the co-prover
+    adds into w_4, as memory read records), then the keys are made.
+    Returns (proof, vk)."""
+    from cocircom_tpu_torch.honk import prover
+    from cocircom_tpu_torch.honk.builder import UltraCircuitBuilder, acir_to_format
+    from cocircom_tpu_torch.honk.co_builder import MpcBuilderValues
+    from cocircom_tpu_torch.honk.crs import TestCrs
+    from cocircom_tpu_torch.honk.proving_key import create_keys
+    from cocircom_tpu_torch.mpc.driver import PlainDriver
+
+    p = curve.fr.p
+    dp = PlainDriver(curve, device=device)
+    m = MpcBuilderValues(dp, dp.promote_public(dp.fr.encode(w)))
+    b = UltraCircuitBuilder(acir_to_format(c), [0] * len(w), mpc=m)
+    b.add_gates_to_ensure_all_polys_are_non_zero()
+    b.finalize_circuit()
+    for i, v in enumerate(w):
+        b.variables[i] = v % p
+    for i, h in m.extra.items():
+        b.variables[i] = int(dp.fr.decode(h)[0])
+    pk, vk = create_keys(b, TestCrs())
+    for r, h in zip(pk.memory_mixed_records, m.mixed_access):
+        pk.witness[3][r] = (pk.witness[3][r] + int(dp.fr.decode(h)[0])) % p
+    pk.memory_read_records = list(pk.memory_read_records) + list(pk.memory_mixed_records)
+    return prover.prove(pk), vk
+
+
+def honk_verify(phase: str, proof, vk) -> None:
+    """The host verifier accepts the proof and refuses it with its first
+    public input changed."""
+    from cocircom_tpu_torch.honk import verifier
+    from cocircom_tpu_torch.honk.builder import P
+
+    check(verifier.verify(proof, vk), f"{phase}: the verifier refused the proof")
+    changed = list(proof)
+    changed[3] = (changed[3] + 1) % P
+    check(not verifier.verify(changed, vk), f"{phase}: a changed public input was accepted")
+
+
+def add_counts(*runs) -> dict:
+    return {k: sum(r.get(k, 0) for r in runs) for k in set().union(*runs)}
+
+
+def phase_honk_small(curve, device) -> dict:
+    """co-noir at a small size on the card: the co-ACVM under REP3 on a
+    ROM/RAM circuit (a ROM block read at a shared index, a RAM block written
+    and read at shared indices: Rep3Lut), opened and held to the plain
+    solver; the REP3 co-proof of that circuit from the co-ACVM's witness
+    shares (provider mode: LUT reads and writes, oblivious sorts in the
+    builder) and the REP3 and Shamir co-proofs of the 16-gate squaring
+    chain, each byte-equal to the port's plain prover, verified, a changed
+    public input refused; a FileCrs commit of 64 coefficients through
+    driver_msm equal to TestCrs.commit.  K1 and K4 must be launched by the
+    proofs, K5 by the driver_msm commit.  Returns the launch counts of the
+    co-ACVM, the proofs and the commit."""
+    from cocircom_tpu_torch.honk import crs as honk_crs
+    from cocircom_tpu_torch.honk import prover
+    from cocircom_tpu_torch.honk.builder import UltraCircuitBuilder, acir_to_format
+    from cocircom_tpu_torch.honk.proving_key import create_keys
+    from cocircom_tpu_torch.mpc.driver import PlainDriver
+    from cocircom_tpu_torch.mpc.rep3 import Rep3Driver, share_field_vec
+    from cocircom_tpu_torch.mpc.runner import run_parties
+    from cocircom_tpu_torch.mpc.shamir import share_field_vec_shamir
+    from cocircom_tpu_torch.noir.rep3_driver import Rep3NoirDriver
+    from cocircom_tpu_torch.noir.solver import AcvmSolver, PlainNoirDriver, Shared
+    from cocircom_tpu_torch.ops import kernels
+    from cocircom_tpu_torch.ops.field import get_field
+
+    u = noir_fixtures()
+    p = curve.fr.p
+    f = get_field(p, curve.name + ".fr", device)
+    c, _abi, w, inputs = u.memory_circuit(61)
+    plain = AcvmSolver(PlainNoirDriver(p), c)
+    plain.bind_inputs(inputs)
+    out = plain.solve()
+    want_w = [out.get(i, 0) for i in range(c.current_witness_index + 1)]
+    check(want_w == w, "honk_small: the plain ACVM's witness differs from the fixture's")
+    in_sh = share_field_vec(f, f.encode(inputs), seed=62)
+
+    def acvm(i, net):
+        d = Rep3NoirDriver(Rep3Driver(curve, net, device=device))
+        s = AcvmSolver(d, c)
+        s.bind_inputs([Shared(d.d.index_share(in_sh[i], k)) for k in range(len(inputs))])
+        wmap = s.solve()
+        handles = [v.v if isinstance(v, Shared) else d.promote(int(v))
+                   for v in (wmap.get(k, 0) for k in range(len(w)))]
+        return d.d.stack_shares(handles), d.open_many(handles)
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_parties(acvm, 3)
+    torch.cuda.synchronize()
+    acvm_s = time.perf_counter() - t0
+    acvm_counts = kernels.launch_counts()
+    check(all(r[1] == want_w for r in res), "honk_small: the REP3 co-ACVM opened another witness")
+
+    walls, rounds = {}, {}
+    kernels.reset_launch_counts()
+    mem, walls["rep3_rom_ram"], _, rounds["rep3_rom_ram"] = honk_prove(
+        curve, device, acir_to_format(c), len(w), [r[0] for r in res], "rep3", True, False)
+    c2, _abi2, w2, _ = u.squaring_chain(16, 63)
+    af2 = acir_to_format(c2)
+    ch3, walls["rep3_chain"], _, rounds["rep3_chain"] = honk_prove(
+        curve, device, af2, len(w2), share_field_vec(f, f.encode(w2), seed=64), "rep3", False,
+        False)
+    chs, walls["shamir_chain"], _, rounds["shamir_chain"] = honk_prove(
+        curve, device, af2, len(w2), share_field_vec_shamir(f, f.encode(w2), 1, 3, seed=65,
+                                                            device=device),
+        "shamir", False, False)
+    proof_counts = kernels.launch_counts()
+    for k in ("mont_mul", "ec_add"):
+        check(proof_counts[k] > 0, f"honk_small: the co-proofs launched no {k}")
+
+    want_mem, vk_mem = provider_plain_proof(curve, device, c, w)
+    check(mem[0] == mem[1] == mem[2] == want_mem,
+          "honk_small: the REP3 ROM/RAM co-proof differs from the plain prover's")
+    honk_verify("honk_small (ROM/RAM)", mem[0], vk_mem)
+    pk2, vk2 = create_keys(UltraCircuitBuilder(af2, w2), honk_crs.TestCrs())
+    want_chain = prover.prove(pk2)
+    for name, proofs in (("REP3", ch3), ("Shamir", chs)):
+        check(proofs[0] == proofs[1] == proofs[2] == want_chain,
+              f"honk_small: the {name} chain co-proof differs from the plain prover's")
+        honk_verify(f"honk_small ({name} chain)", proofs[0], vk2)
+
+    tc = honk_crs.TestCrs()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_crs_", dir=ROOT) as tmp:
+        g1, g2 = os.path.join(tmp, "g1.dat"), os.path.join(tmp, "g2.dat")
+        honk_crs.write_g1_dat(g1, honk_crs.generate_test_setup_g1(64, tc.tau))
+        with open(g2, "wb") as fh:
+            for co in (tc.g2_x[0].c0, tc.g2_x[0].c1, tc.g2_x[1].c0, tc.g2_x[1].c1):
+                fh.write(int(co.v).to_bytes(32, "big"))
+        fc = honk_crs.FileCrs(g1, g2, 64, msm=honk_crs.driver_msm(PlainDriver(curve, device=device)))
+    poly = [int.from_bytes(np.random.default_rng(66).bytes(32), "little") % p for _ in range(64)]
+    kernels.reset_launch_counts()
+    got = fc.commit(poly)
+    torch.cuda.synchronize()
+    msm_counts = kernels.launch_counts()
+    want = tc.commit(poly)
+    check((got[0].v, got[1].v) == (want[0].v, want[1].v),
+          "honk_small: the driver_msm commit differs from TestCrs.commit")
+    check(msm_counts["ec_madd"] > 0, "honk_small: the driver_msm commit launched no ec_madd")
+    emit({"phase": "honk_small", "acvm_rep3_s": round(acvm_s, 3), "acvm_witness_slots": len(w),
+          "acvm_launches": {k: v for k, v in acvm_counts.items() if v},
+          "walls_s": {k: round(v, 3) for k, v in walls.items()}, "rounds_party0": rounds,
+          "proof_launches": {k: v for k, v in proof_counts.items() if v},
+          "driver_msm_launches": {k: v for k, v in msm_counts.items() if v},
+          "proofs_equal_plain": True, "verified": True, "changed_public_refused": True,
+          "shamir_rom_ram": "not run: the LUTs are REP3 only, as in the JAX package"})
+    return add_counts(acvm_counts, proof_counts, msm_counts)
+
+
+def phase_honk_full(curve, device, log_n: int) -> dict:
+    """co-UltraHonk at n = 2^log_n rows under REP3: the Poseidon-style chain
+    (tests/torch_port_util.poseidon_chain) built in code from a seed, its
+    witness computed on the host and split into REP3 shares; three party
+    threads, each building its own circuit and keys on the host, once (the
+    noir_cli phase proves the same circuit again in three processes); the
+    proofs equal, the host verifier accepts the proof and refuses a changed
+    public input.  Returns the proof's launch counts."""
+    from cocircom_tpu_torch.honk.builder import UltraCircuitBuilder, acir_to_format
+    from cocircom_tpu_torch.honk.crs import TestCrs
+    from cocircom_tpu_torch.honk.proving_key import create_keys
+    from cocircom_tpu_torch.mpc.driver import PlainDriver
+    from cocircom_tpu_torch.mpc.rep3 import share_field_vec
+    from cocircom_tpu_torch.ops import kernels
+    from cocircom_tpu_torch.ops.field import get_field
+
+    u = noir_fixtures()
+    rounds = honk_rounds(log_n)
+    (c, _abi, w, _), fixture_s = honk_chain(u, log_n)
+    t0 = time.perf_counter()
+    af = acir_to_format(c)  # parsed once here, read by every party's builder
+    acir_s = time.perf_counter() - t0
+    f = get_field(curve.fr.p, curve.name + ".fr", device)
+    shares = share_field_vec(f, f.encode(w), seed=67)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    proofs, wall, spans, rounds0 = honk_prove(curve, device, af, len(w), shares, "rep3", False,
+                                              True)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(proofs[0] == proofs[1] == proofs[2], "honk_full: the parties' proofs differ")
+    for k in ("mont_mul", "ec_add"):
+        check(counts[k] > 0, f"honk_full: the proof launched no {k}")
+    t0 = time.perf_counter()
+    pk, vk = create_keys(UltraCircuitBuilder(af, [0] * len(w)),
+                         TestCrs(driver=PlainDriver(curve, device=device)))
+    vk_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    honk_verify("honk_full", proofs[0], vk)
+    verify_s = time.perf_counter() - t0
+    emit({"phase": "honk_full", "rows": pk.circuit_size, "opcodes": len(c.opcodes),
+          "poseidon_rounds": rounds, "witness_slots": len(w),
+          "padding_rows": pk.circuit_size - (len(c.opcodes) + 19),
+          "fixture_s": round(fixture_s, 2), "acir_to_format_s": round(acir_s, 2),
+          "wall_s": round(wall, 3), "spans_party0": spans,
+          "rounds_party0": rounds0, "peak_device_bytes": int(peak),
+          "launches": {k: v for k, v in counts.items() if v},
+          "vk_s": round(vk_s, 2), "verify_host_s": round(verify_s, 2),
+          "proofs_identical": True, "verified": True, "changed_public_refused": True})
+    return counts
+
+
+def noir_cli_files(u, w, log_n: int) -> dict:
+    """The noir_cli inputs: the ROM/RAM circuit with two providers' ABIs
+    and Prover.toml files, the squaring chain and honk_full's 2^log_n-row
+    chain as program JSON and witness stacks.  Returns the small
+    fixtures' witnesses and inputs, the file sizes and the seconds."""
+    from cocircom_tpu_torch.noir.acir import write_witness_stack
+
+    t0 = time.perf_counter()
+    c, abi, wit, inputs = u.memory_circuit(71)
+    names = [q["name"] for q in abi["parameters"]]
+    for k, part in enumerate((names[:2], names[2:])):
+        sub = {"parameters": [q for q in abi["parameters"] if q["name"] in part]}
+        with open(w(f"mem{k}.json"), "w") as fh:
+            fh.write(u.acir_program_json(c, sub))
+        with open(w(f"p{k}.toml"), "w") as fh:
+            fh.write("".join(f'{nm} = "{hex(inputs[names.index(nm)])}"\n' for nm in part))
+    with open(w("mem.json"), "w") as fh:
+        fh.write(u.acir_program_json(c, abi))
+    c2, abi2, w2, _ = u.squaring_chain(16, 72)
+    (cf, abif, witf, _), _ = honk_chain(u, log_n)
+    for name, (cc, aa, ww) in (("chain", (c2, abi2, w2)), ("full", (cf, abif, witf))):
+        with open(w(f"{name}.json"), "w") as fh:
+            fh.write(u.acir_program_json(cc, aa))
+        with open(w(f"{name}.gz"), "wb") as fh:
+            fh.write(write_witness_stack([(0, dict(enumerate(ww)))]))
+    return {"mem_witness": wit, "mem_inputs": inputs,
+            "file_bytes": {k: os.path.getsize(w(k)) for k in ("full.json", "full.gz")},
+            "files_write_s": round(time.perf_counter() - t0, 2)}
+
+
+def phase_noir_cli(curve, work: str, smi_line: str, log_n: int) -> dict:
+    """The noir CLI (python -m cocircom_tpu_torch.noir.cli) as separate
+    party processes on the card over mutual-TLS meshes (self-signed certs
+    made here; plain TCP where `cryptography` does not import).  Every
+    subcommand on the small circuits: split-input by two providers (two
+    ABIs over the ROM/RAM circuit), merge-input-shares, three
+    generate-witness (the REP3 co-ACVM; opened here and held to the
+    fixture's witness), three translate-witness (the Shamir shares opened
+    likewise); on the squaring chain split-witness, three generate-proof,
+    create-vk, verify (accepts, and refuses a changed public input).  Then
+    honk_full's 2^log_n-row chain (the same circuit and witness): three
+    generate-proof processes (COCIRCOM_TRACE=1) with create-vk beside them,
+    verify; proofs byte-equal and accepted; each party's spans, bytes, peak
+    memory and launches.  Stages whose processes do not depend on each
+    other run together.  Returns the summed launches of every
+    generate-proof process."""
+    from cocircom_tpu_torch.honk import prover
+    from cocircom_tpu_torch.io.shares_io import _from_file
+    from cocircom_tpu_torch.mpc import codec
+    from cocircom_tpu_torch.mpc.net import gen_self_signed_cert
+    from cocircom_tpu_torch.mpc.rep3 import Rep3FieldShare, combine_field_shares
+    from cocircom_tpu_torch.mpc.shamir import combine_field_shares_shamir
+    from cocircom_tpu_torch.ops.field import get_field
+
+    u = noir_fixtures()
+    w = lambda name: os.path.join(work, name)  # noqa: E731
+    f = get_field(curve.fr.p, curve.name + ".fr", "cpu")
+    run = CliRunner(work, module=NOIR_CLI)
+    tls = tls_status()
+    certs = None
+    if tls is None:
+        # made in this process: the cli phase runs gen-cert as processes
+        certs = [(w(f"key{i}.pem"), w(f"cert{i}.pem")) for i in range(3)]
+        for key, cert in certs:
+            gen_self_signed_cert(key, cert, "localhost")
+    ports = free_ports(3 * 4)
+    mesh = {name: cli_mesh_configs(work, name, ports[3 * k: 3 * k + 3], certs)
+            for k, name in enumerate(("witness", "translate", "prove", "full"))}
+    files = noir_cli_files(u, w, log_n)
+
+    def opened(paths, kind):
+        objs = [codec.decode(open(pth, "rb").read()) for pth in paths]
+        check(all(o["kind"] == kind for o in objs), f"noir_cli: a file is not {kind}")
+        if kind == "noir-witness-shamir":
+            return [int(v) for v in f.decode(combine_field_shares_shamir(
+                f, [_from_file(np.asarray(o["a"]), "cpu") for o in objs], 1))]
+        return [int(v) for v in f.decode(combine_field_shares(f, [
+            Rep3FieldShare(_from_file(np.asarray(o["a"]), "cpu"),
+                           _from_file(np.asarray(o["b"]), "cpu")) for o in objs]))]
+
+    def launches_of(results):
+        total = {}
+        for _, _, err in results:
+            for k, v in (parse_report(err)[1] or {}).items():
+                total[k] = total.get(k, 0) + v
+        return total
+
+    run.stage("split", [["split-input", "--input", w(f"p{k}.toml"), "--circuit",
+                         w(f"mem{k}.json"), "--out-dir", w(f"in{k}")] for k in range(2)]
+              + [["split-witness", "--witness", w(f"{name}.gz"), "--circuit", w(f"{name}.json"),
+                  "--out-dir", w(f"sw_{name}")] for name in ("chain", "full")], timeout=600)
+    run.stage("merge", [["merge-input-shares", w(f"in0/p0.toml.{i}.shared"),
+                         w(f"in1/p1.toml.{i}.shared"), "--out", w(f"merged.{i}.shared")]
+                        for i in range(3)])
+    check(opened([w(f"merged.{i}.shared") for i in range(3)], "noir-input")
+          == files["mem_inputs"], "noir_cli: the merged inputs open to other values")
+    res = run.stage("small", [["generate-witness", "--input", w(f"merged.{i}.shared"),
+                               "--circuit", w("mem.json"), "--net-config", mesh["witness"][i],
+                               "--out", w(f"wit.{i}.shared")] for i in range(3)]
+                    + [["generate-proof", "--witness", w(f"sw_chain/witness.gz.{i}.shared"),
+                        "--circuit", w("chain.json"), "--net-config", mesh["prove"][i],
+                        "--out", w(f"proof.{i}")] for i in range(3)]
+                    + [["create-vk", "--circuit", w("chain.json"), "--out", w("vk.json")]])
+    check(opened([w(f"wit.{i}.shared") for i in range(3)], "noir-witness")
+          == files["mem_witness"], "noir_cli: the co-ACVM's witness opens to other values")
+    proofs = [open(w(f"proof.{i}"), "rb").read() for i in range(3)]
+    check(proofs[0] == proofs[1] == proofs[2], "noir_cli: the parties' proof files differ")
+    bad = prover.proof_from_buffer(proofs[0])
+    bad[3] = (bad[3] + 1) % curve.fr.p
+    with open(w("bad.proof"), "wb") as fh:
+        fh.write(prover.proof_to_buffer(bad))
+    res_v = run.stage("translate_verify",
+                      [["translate-witness", "--witness", w(f"wit.{i}.shared"), "--net-config",
+                        mesh["translate"][i], "--out", w(f"sh.{i}.shared")] for i in range(3)]
+                      + [["verify", "--proof", w(pf), "--vk", w("vk.json")]
+                         for pf in ("proof.0", "bad.proof")], expect=[0, 0, 0, 0, 1])
+    check(opened([w(f"sh.{i}.shared") for i in range(3)], "noir-witness-shamir")
+          == files["mem_witness"], "noir_cli: the Shamir witness opens to other values")
+    check("verification: OK" in res_v[3][1], "noir_cli: verify did not accept the proof")
+    check("verification: FAILED" in res_v[4][1],
+          "noir_cli: verify accepted a changed public input")
+    small = {"launches": launches_of(res[3:6]), "proofs_identical": True, "verified": True,
+             "changed_public_refused": True, "witness_opened": True}
+
+    t0 = time.perf_counter()
+    res = run.stage("full_prove", [["generate-proof", "--witness",
+                                    w(f"sw_full/witness.gz.{i}.shared"), "--circuit",
+                                    w("full.json"), "--net-config", mesh["full"][i], "--out",
+                                    w(f"full.proof.{i}")] for i in range(3)]
+                    + [["create-vk", "--circuit", w("full.json"), "--out", w("full.vk.json")]],
+                    timeout=900)
+    wall = time.perf_counter() - t0
+    proofs = [open(w(f"full.proof.{i}"), "rb").read() for i in range(3)]
+    check(proofs[0] == proofs[1] == proofs[2], "noir_cli: the 2^20 parties' proof files differ")
+    res_v = run.stage("full_verify", [["verify", "--proof", w("full.proof.0"), "--vk",
+                                       w("full.vk.json")]])
+    check("verification: OK" in res_v[0][1], "noir_cli: verify did not accept the 2^20 proof")
+    parties = []
+    for i, (_, _, err) in enumerate(res[:3]):
+        spans, launches, peak, setup = parse_report(err)
+        missing = [k for k in NOIR_CLI_KERNELS if not (launches or {}).get(k)]
+        check(not missing, f"noir_cli: party {i}'s report shows no launch of {missing}")
+        prove = spans.get("generate-proof ultrahonk")
+        check(prove is not None, f"noir_cli: party {i}'s report lacks the prove span: {spans}")
+        parties.append({"spans": {k: round(v[0], 3) for k, v in spans.items()},
+                        "sent_bytes": prove[1], "recv_bytes": prove[2],
+                        "peak_device_bytes": peak, "launches": launches,
+                        "launches_setup": setup})
+    full = {"rows": 1 << log_n, "files_write_s": files["files_write_s"],
+            "file_bytes": files["file_bytes"], "parties": parties,
+            "wall_spawn_to_last_exit_s": round(wall, 3), "proofs_identical": True,
+            "verified": True, "launches": launches_of(res[:3])}
+    emit({"phase": "noir_cli", "tls": "mutual, pinned certificates" if tls is None else tls,
+          "small": small, "full": full, "stage_seconds": run.seconds, "device": smi_line})
+    return add_counts(small["launches"], full["launches"])
+
+
 def free_ports(n: int) -> list:
     """n distinct free localhost ports (bound to port 0 together, released)."""
     import socket
@@ -2749,6 +3284,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(ALL_PHASES))
     ap.add_argument("--full-log", type=int, default=20)
+    ap.add_argument("--honk-log", type=int, default=HONK_LOG)
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:
@@ -2796,7 +3332,8 @@ def main() -> None:
     zero = {k: 0 for k in kernels.COUNT_KEYS}
     runs = {"prove_small": zero, "prove_full_cold": zero, "prove_sharded": zero,
             "prove_shamir": zero, "prove_bls": zero, "plonk_small": zero, "plonk_full": zero,
-            "vm_small": zero, "vm_full": zero, "cli": zero}
+            "vm_small": zero, "vm_full": zero, "cli": zero, "honk_small": zero,
+            "honk_full": zero, "noir_cli": zero}
     if "prove_small" in phases:
         runs["prove_small"] = phase_prove_small(curve, device, SMALL_MULS)
     inputs = None
@@ -2838,6 +3375,21 @@ def main() -> None:
                                     (warm_prove_full, warm_counts), smi_line)
         finally:
             shutil.rmtree(cli_work, ignore_errors=True)
+    if "honk_small" in phases:
+        runs["honk_small"] = phase_honk_small(curve, device)
+    if "honk_full" in phases:
+        runs["honk_full"] = phase_honk_full(curve, device, args.honk_log)
+    if "noir_cli" in phases:
+        gc.collect()
+        torch.cuda.empty_cache()
+        noir_work = tempfile.mkdtemp(prefix=".chip_smoke_noir_", dir=ROOT)
+        try:
+            runs["noir_cli"] = phase_noir_cli(curve, noir_work, smi_line, args.honk_log)
+        finally:
+            shutil.rmtree(noir_work, ignore_errors=True)
+    _HONK_CHAINS.clear()
+    if "honk_profile" in phases:
+        phase_honk_profile(curve, device, args.honk_log)
     if "graft" in phases:
         phase_graft(curve, device)
     counts = {k: sum(r.get(k, 0) for r in runs.values()) for k in kernels.COUNT_KEYS}

@@ -41,7 +41,11 @@ def _lagrange_at_zero(host: HostField, xs: list[int]) -> list[int]:
 
 
 def _times_const(f: Field, c, v: int):
-    """c * v for a host int v (Montgomery constant, broadcast)."""
+    """c * v for a host int v (Montgomery constant, broadcast).  Callers
+    only read the result, so v = 1 (party 1's powers, the DN07 rows' x^0)
+    returns c itself: the same residues without a multiply."""
+    if v % f.p == 1:
+        return c
     return f.mont_mul(c, f._bc(f.const_mont(v % f.p), c))
 
 

@@ -40,6 +40,7 @@ from .kernels import broadcast_shapes
 
 W = 32
 M32 = 0xFFFFFFFF
+_I63 = 1 << 63
 M16 = 0xFFFF
 
 
@@ -135,11 +136,13 @@ def _normalize(x: torch.Tensor, w: int, bound_bits: int) -> torch.Tensor:
     single-bit carries: column i generates one if it equals 2^w and passes
     one on if it equals 2^w - 1.  Packing those flags into two integers G
     and P, the carries into every column are the bits of (2G + P) ^ P, the
-    carry vector of the binary addition (G | P) + G."""
+    carry vector of the binary addition (G | P) + G.  A column below
+    2^(w+1) - 1 generates at most one carry and, when it generates one,
+    does not propagate, so the passes stop there."""
     k = x.shape[0]
     mask = (1 << w) - 1
     top = (1 << bound_bits) - 1
-    while top > (1 << w):
+    while top > (2 << w) - 2:
         hi = x >> w
         x = x & mask
         x[1:] += hi[:-1]
@@ -154,14 +157,35 @@ def _normalize(x: torch.Tensor, w: int, bound_bits: int) -> torch.Tensor:
 def _mul_cols16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Schoolbook product of two k-limb 16-bit operands (int64, limb axis 0)
     into 2k deferred columns (each below 2^37 for k = 16): one outer product,
-    then the anti-diagonal sums by the pad-and-reshape skew."""
+    then the anti-diagonal sums by the pad-and-reshape skew: the products
+    are written into the first k of 2k + 1 columns of a row, the rest
+    zero, so that row i read with stride 2k starts i columns late."""
     k = a.shape[0]
     batch = tuple(broadcast_shapes(a.shape[1:], b.shape[1:]))
-    prod = a.unsqueeze(1) * b.unsqueeze(0)
-    prod = prod.expand((k, k) + batch)
-    pad = torch.zeros((k, k + 1) + batch, dtype=torch.int64, device=prod.device)
-    skew = torch.cat([prod, pad], dim=1).reshape((k * (2 * k + 1),) + batch)
+    skew = torch.empty((k, 2 * k + 1) + batch, dtype=torch.int64, device=a.device)
+    skew[:, k:] = 0
+    torch.mul(a.unsqueeze(1), b.unsqueeze(0), out=skew[:, :k])
+    skew = skew.reshape((k * (2 * k + 1),) + batch)
     return skew[: 2 * k * k].reshape((k, 2 * k) + batch).sum(dim=0)
+
+
+def _toeplitz16(c: int, k: int, rows: int, device) -> torch.Tensor:
+    """The (rows, k) float64 matrix T with (T @ x)[j] = sum_i c_{j-i} x_i,
+    c_m the 16-bit limbs of the constant c: the product columns of c and a
+    k-limb operand x as one matrix product."""
+    limbs = [(c >> (16 * m)) & M16 for m in range(k)]
+    t = [[float(limbs[j - i]) if 0 <= j - i < k else 0.0 for i in range(k)]
+         for j in range(rows)]
+    return torch.tensor(t, dtype=torch.float64, device=device)
+
+
+def _mul_const_cols16(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Product columns of 16-bit limbs x (int64, limb axis 0, each below
+    2^16) and a constant, through its _toeplitz16 matrix t: a float64
+    matrix product, exact because a column sums at most 24 products below
+    2^32, far below 2^53."""
+    flat = x.reshape(x.shape[0], -1).to(torch.float64)
+    return (t @ flat).to(torch.int64).reshape((t.shape[0],) + tuple(x.shape[1:]))
 
 
 def mont_mul_plain(f: "Field", a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -200,9 +224,9 @@ class Field:
         # ~p + 1 limb by limb: adding it subtracts p in two's complement
         self._negp32 = (self._p32 ^ M32) + torch.tensor([1] + [0] * (L - 1), **i64)
         self._one_col = torch.tensor([1] + [0] * (L - 1), **i64)
-        self._p16 = torch.tensor([(p >> (16 * i)) & M16 for i in range(2 * L)], **i64)
-        self._np16 = torch.tensor(
-            [(self.nprime >> (16 * i)) & M16 for i in range(2 * L)], **i64)
+        # REDC's products by the constants -p^-1 (its low 2L columns) and p
+        self._np_t = _toeplitz16(self.nprime, 2 * L, 2 * L, dev)
+        self._p_t = _toeplitz16(p, 2 * L, 4 * L, dev)
         self._one_mont = self._const(self.r_mod_p)
         self._one_std = self._const(1)
         self._r2 = self._const(self.r2)
@@ -235,10 +259,22 @@ class Field:
         return self.kernel_consts()
 
     def to_limbs(self, vals) -> torch.Tensor:
-        """python int(s) -> (L, *batch) int32 limbs (standard form)."""
+        """python int(s) -> (L, *batch) int32 limbs (standard form).  Values
+        in [0, 2^63) (selectors, indices: most of a proving key) go through
+        numpy int64, the others one int at a time: on a million values
+        about 20x faster than all one at a time."""
         arr = np.asarray(vals, dtype=object)
-        red = np.array([int(v) % self.p for v in arr.reshape(-1)], dtype=object)
-        return self.from_numpy(ints_to_limbs_np(red.reshape(arr.shape), self.L))
+        flat = arr.reshape(-1)
+        small = np.fromiter((v if 0 <= v < _I63 else -1 for v in flat), dtype=np.int64,
+                            count=flat.shape[0])
+        limbs = np.zeros((self.L, flat.shape[0]), dtype=np.uint32)
+        limbs[0] = small & M32
+        limbs[1] = small >> 32
+        big = np.flatnonzero(small < 0)
+        if big.size:
+            red = np.array([int(flat[i]) % self.p for i in big], dtype=object)
+            limbs[:, big] = ints_to_limbs_np(red, self.L)
+        return self.from_numpy(limbs.reshape((self.L,) + arr.shape))
 
     def from_limbs(self, limbs) -> np.ndarray:
         """(L, *batch) limbs -> object ndarray of python ints (host)."""
@@ -304,9 +340,12 @@ class Field:
         """Normalize two (L, *batch) column sets (each below 2^35) at once,
         each extended by one column that catches its carry-out.  Returns
         (limbs (2, L, *batch), carry-out (2, *batch))."""
-        both = torch.stack([first, second])
-        both = torch.cat([both, torch.zeros_like(both[:, :1])], dim=1)
-        both = _normalize(both.movedim(1, 0), W, 35).movedim(0, 1)
+        both = torch.empty((self.L + 1, 2) + tuple(first.shape[1:]), dtype=torch.int64,
+                           device=first.device)
+        both[: self.L, 0] = first
+        both[: self.L, 1] = second
+        both[self.L] = 0
+        both = _normalize(both, W, 35).movedim(0, 1)
         return both[:, : self.L], both[:, self.L]
 
     def _cond_sub_p(self, x):
@@ -368,11 +407,9 @@ class Field:
         canonical Montgomery residue as int32 limbs, by full-width REDC:
             q = (T mod R)(-p^-1) mod R ;  res = (T + q p) / R < 2p."""
         L16 = self.L16
-        nb = self._col(self._p16, acc.dim())
-        npb = self._col(self._np16, acc.dim())
         tc = _normalize(acc, 16, 37)
-        q = _normalize(_mul_cols16(tc[:L16], npb)[:L16], 16, 37)
-        s = _normalize(tc + _mul_cols16(q, nb), 16, 38)
+        q = _normalize(_mul_const_cols16(tc[:L16], self._np_t), 16, 37)
+        s = _normalize(tc + _mul_const_cols16(q, self._p_t), 16, 38)
         return self._cond_sub_p(pack16_to_32(s[L16:]))
 
     def mont_mul(self, a, b):
@@ -433,8 +470,14 @@ class Field:
         return acc
 
     def inv(self, a):
-        """Fermat inverse; 0 -> 0."""
-        return self.pow_static(a, self.p - 2)
+        """Fermat inverse; 0 -> 0.  On the card a chain of about 1.5 bitlen
+        `mont_mul` launches; on the CPU the same residues by Python's pow
+        (the plain chain costs about 0.4 s a call there)."""
+        if a.is_cuda:
+            return self.pow_static(a, self.p - 2)
+        vals = np.asarray(self.decode(a), dtype=object).reshape(-1)
+        inv = [pow(int(v), self.p - 2, self.p) for v in vals]
+        return self.encode(np.asarray(inv, dtype=object).reshape(a.shape[1:]))
 
     def batch_inv(self, a, axis: int = 1):
         """Montgomery's trick along one batch axis as a product tree:

@@ -30,7 +30,12 @@ assert "cocircom_tpu_torch.parallel.sharded" in names and \
 for m in ("mpc.shamir", "mpc.bridges", "ops.keccak", "io.jsonio", "io.plonk_zkey",
           "snark.plonk", "snark.plonk_setup", "snark.plonk_verify", "mpc.rep3_binary",
           "vm.lexer", "vm.parser", "vm.algebra", "vm.compiler", "vm.mpc_vm",
-          "cli", "mpc.codec", "mpc.net", "io.shares_io", "vm.fit_layout"):
+          "cli", "mpc.codec", "mpc.net", "io.shares_io", "vm.fit_layout",
+          # co-noir: the 20 modules of its slice
+          "honk", "honk.builder", "honk.co_alg", "honk.co_builder", "honk.co_prover",
+          "honk.crs", "honk.prover", "honk.proving_key", "honk.relations", "honk.sumcheck",
+          "honk.transcript", "honk.verifier", "honk.zeromorph", "noir", "noir.acir",
+          "noir.cli", "noir.poseidon2", "noir.rep3_driver", "noir.solver", "mpc.lut"):
     assert "cocircom_tpu_torch." + m in names, m
 print("MODULES", len(names))
 print("BAD", bad)
@@ -130,6 +135,15 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         shared_witness_to_split(b"")
     with pytest.raises(SystemExit, match="CUDA"):
         cli.main(["generate-proof", "groth16", "--zkey", "z", "--witness", "w", "--out", "o"])
+    # co-noir: the noir CLI and the co-prover's drivers
+    from cocircom_tpu_torch.noir import cli as noir_cli
+
+    for argv in (["split-witness", "--witness", "w", "--circuit", "c", "--out-dir", "o"],
+                 ["generate-proof", "--witness", "w", "--circuit", "c", "--net-config", "n",
+                  "--out", "o"],
+                 ["create-vk", "--circuit", "c", "--out", "o"]):
+        with pytest.raises(SystemExit, match="CUDA"):
+            noir_cli.main(argv)
     assert split_input_rep3(BN254, {"a": 1, "b": 2}, ["a"], seed=1, device="cpu")[0] \
         .shared_inputs["b"].a.device.type == "cpu"
     assert all(s.device.type == "cpu"
