@@ -1,23 +1,21 @@
 """The port over BLS12-381 as a whole, single party: the zkey loader follows
 the curve named by the file's primes, `zkey_from_reference` carries a
 24-limb zkey across, and a Plain Groth16 proof verifies under both packages'
-pairing verifiers and, with `rand` pinned, equals the JAX package's point
-for point.  Tolerance 0.
+pairing verifiers and, with `rand` pinned, equals the JAX package's pinned
+proof (tests/reference_pins.py) point for point.  Tolerance 0.
 """
 
+import functools
+
+import reference_pins
 import torch
 
-import cocircom_tpu.mpc.driver as ref_driver
 import cocircom_tpu_torch.mpc.driver as port_driver
 from cocircom_tpu.fields.params import BLS12_381
 from cocircom_tpu.io.r1cs import R1CS as RefR1CS
-from cocircom_tpu.io.witness import Witness as RefWitness
 from cocircom_tpu.io.zkey import read_groth16_zkey as ref_read_zkey
-from cocircom_tpu.ops.field import get_field as ref_get_field
-from cocircom_tpu.snark.groth16 import CoGroth16 as RefCoGroth16
 from cocircom_tpu.snark.groth16_verify import verify_groth16 as ref_verify
 from cocircom_tpu.snark.setup import groth16_setup as ref_setup
-from cocircom_tpu.snark.shared import split_witness_plain as ref_split_plain
 from cocircom_tpu_torch import convert
 from cocircom_tpu_torch.fields.params import BLS12_381 as PBLS
 from cocircom_tpu_torch.io.r1cs import multiplier_chain as port_multiplier_chain
@@ -30,7 +28,21 @@ from cocircom_tpu_torch.snark.setup import groth16_setup
 from cocircom_tpu_torch.snark.shared import split_witness_plain
 from torch_port_util import multiplier_chain, same, small_msm_engines
 
-R = BLS12_381.fr.p
+N_MUL = 5
+
+
+@functools.lru_cache(maxsize=None)
+def _circuit():
+    r1cs, vals = multiplier_chain(BLS12_381, RefR1CS, N_MUL, 3)
+    zkey_bytes, vk = ref_setup(r1cs, seed=b"torch-port-bls")
+    return vals, zkey_bytes, vk
+
+
+def reference_inputs():
+    """What the JAX package's Plain prover is handed: `rand` draws r = 5, s = 7."""
+    vals, zkey_bytes, _ = _circuit()
+    return [{"kind": "groth16/plain", "curve": "bls12_381", "zkey": zkey_bytes,
+             "witness": vals, "n_public": 2, "rand": [5, 7], "msm_t": 2}]
 
 
 def test_plain_groth16_proof_equals_reference_and_verifies(monkeypatch):
@@ -42,15 +54,11 @@ def test_plain_groth16_proof_equals_reference_and_verifies(monkeypatch):
 
 
 def _prove(monkeypatch):
-    vals_iter = {"ref": iter([5, 7]), "port": iter([5, 7])}
-    monkeypatch.setattr(ref_driver.PlainDriver, "rand",
-                        lambda self, shape=(): self.fr.encode([next(vals_iter["ref"])])[:, 0])
+    rand = iter([5, 7])
     monkeypatch.setattr(port_driver.PlainDriver, "rand",
-                        lambda self, shape=(): self.fr.encode([next(vals_iter["port"])])[:, 0])
-    n_mul = 5
-    r1cs, vals = multiplier_chain(BLS12_381, RefR1CS, n_mul, 3)
-    zkey_bytes, vk = ref_setup(r1cs, seed=b"torch-port-bls")
-    port_r1cs, pvals = port_multiplier_chain(PBLS, n_mul, 3)
+                        lambda self, shape=(): self.fr.encode([next(rand)])[:, 0])
+    vals, zkey_bytes, vk = _circuit()
+    port_r1cs, pvals = port_multiplier_chain(PBLS, N_MUL, 3)
     pbytes, pvk = groth16_setup(port_r1cs, seed=b"torch-port-bls")
     assert pvals == vals and pbytes == zkey_bytes
     publics = [vals[1], vals[2]]
@@ -68,10 +76,7 @@ def _prove(monkeypatch):
         assert torch.equal(getattr(zk.b_g2_query, c), getattr(conv.b_g2_query, c))
     assert same(zk.matrices.a_coeffs, ref_zk.matrices.a_coeffs)
 
-    rfr = ref_get_field(R, "bls12_381.fr")
-    rwit = RefWitness(BLS12_381, len(vals), rfr.to_limbs(vals))
-    ref_proof = RefCoGroth16(ref_driver.PlainDriver(BLS12_381)).prove(
-        ref_zk, ref_split_plain(rwit, 2))
+    ref_proof = reference_pins.groth16_proof(reference_pins.pinned(reference_inputs()[0]))
 
     wit = Witness(PBLS, len(vals), ints_to_limbs_np(vals, 8))
     proof = CoGroth16(port_driver.PlainDriver(PBLS, device="cpu")).prove(

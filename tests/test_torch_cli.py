@@ -6,7 +6,7 @@ chip_smoke.py's SplitChain at a few constraints, its .r1cs written by
 chip_smoke.write_r1cs.  Here on the CPU it proves only with `plain` (a REP3
 proof costs minutes on the CPU's plain versions); the REP3, Shamir and PLONK
 proofs through the CLI, as party processes on the card, are chip_smoke.py's
-`cli` phase.  Tolerance 0 throughout.  The plain proof comes first.
+`cli` phase.  Tolerance 0 throughout.
 """
 
 import json

@@ -2,37 +2,29 @@
 co_builder.py) under REP3 and Shamir, and the noir CLI (noir/cli.py).
 
 The oracle is the JAX package's PLAIN UltraHonk prover (honk/prover.py) on
-the same circuit, witness and TestCrs: the co-prover's proof must equal it
-byte for byte (tolerance 0) and verify.  The JAX co-prover is not run here:
-it costs minutes on the CPU even at 16 gates.  For the ROM/RAM circuit the
-builder runs in provider mode (co_builder.MpcBuilderValues: oblivious LUT
-reads and writes, oblivious sorts); the JAX oracle is its plain prover over
-the JAX package's provider-mode circuit, with the shared values filled in
-on the host (`_reference_provider_proof`).
+the same circuit, witness and TestCrs, pinned (tests/reference_pins.py):
+the co-prover's proof buffer must hash to the pinned one (tolerance 0) and
+verify.  The JAX co-prover is not run here: it costs minutes on the CPU
+even at 16 gates.  For the ROM/RAM circuit the builder runs in provider
+mode (co_builder.MpcBuilderValues: oblivious LUT reads and writes,
+oblivious sorts); the JAX oracle is its plain prover over the JAX
+package's provider-mode circuit, with the shared values filled in on the
+host (`reference_pins._honk_provider`).
 
 The CLI runs in process (`main([...])`, `--device cpu`), its parties as
-threads over the in-process network.  Long tests first.
+threads over the in-process network.
 """
 
+import functools
 import threading
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
+import reference_pins
 
-from cocircom_tpu.fields.params import BN254 as RBN254
-from cocircom_tpu.honk import prover as ref_prover
-from cocircom_tpu.honk.builder import UltraCircuitBuilder as RefBuilder
-from cocircom_tpu.honk.builder import acir_to_format as ref_acir_to_format
-from cocircom_tpu.honk.co_builder import MpcBuilderValues as RefMpcValues
-from cocircom_tpu.honk.crs import TestCrs as RefCrs
-from cocircom_tpu.honk.proving_key import create_keys as ref_create_keys
 from cocircom_tpu.mpc import codec as ref_codec
-from cocircom_tpu.mpc.driver import plain_driver as ref_plain_driver
-from cocircom_tpu.noir.acir import load_program_json as ref_load
-from cocircom_tpu.ops.field import get_field as ref_get_field
 from cocircom_tpu_torch.fields.params import BN254
-from cocircom_tpu_torch.honk import verifier
+from cocircom_tpu_torch.honk import prover, verifier
 from cocircom_tpu_torch.honk.builder import P, UltraCircuitBuilder, acir_to_format
 from cocircom_tpu_torch.honk.co_builder import MpcBuilderValues
 from cocircom_tpu_torch.honk.co_prover import CoUltraHonk
@@ -50,54 +42,35 @@ from torch_port_util import acir_program_json, memory_circuit, squaring_chain
 FR = get_field(P, "bn254.fr", device="cpu")
 
 
-def _ref_circuit(c, abi):
-    (rc,), _ = ref_load(acir_program_json(c, abi))
-    return rc
+def _reference_inputs(kind, c, abi, w):
+    """What the JAX package's plain prover is handed: "honk/plain" or, over
+    the provider-mode circuit, "honk/provider"."""
+    return {"kind": kind, "program": acir_program_json(c, abi), "witness": w}
 
 
-def _reference_plain_proof(c, abi, w):
-    """The JAX package's plain UltraHonk proof and vk of a circuit."""
-    b = RefBuilder(ref_acir_to_format(_ref_circuit(c, abi)), w)
-    pk, vk = ref_create_keys(b, RefCrs())
-    return ref_prover.prove(pk), vk
+@functools.lru_cache(maxsize=None)
+def _chain():
+    return squaring_chain(16, 53)
 
 
-def _reference_provider_proof(c, abi, w):
-    """The JAX package's plain UltraHonk prover over its provider-mode
-    circuit (the oblivious ROM/RAM structure a co-prover proves): the
-    builder runs with the JAX plain driver, is finalized, and every shared
-    value (the witness, the registered extras, the sorted RAM rows' access
-    types, which the co-prover adds into w_4 at their rows) is filled in on
-    the host before the keys are made."""
-    rf = ref_get_field(RBN254.fr.p, "bn254.fr")
-    dp = ref_plain_driver(RBN254)
-    m = RefMpcValues(dp, dp.promote_public(rf.to_mont(jnp.asarray(rf.to_limbs(w)))))
-    af = ref_acir_to_format(_ref_circuit(c, abi))
-    b = RefBuilder(af, [0] * af.varnum, mpc=m)
-    b.add_gates_to_ensure_all_polys_are_non_zero()
-    b.finalize_circuit()
+@functools.lru_cache(maxsize=None)
+def _memory():
+    return memory_circuit(51)
 
-    def dec(h):
-        return int(rf.from_limbs(rf.from_mont(h))[0])
 
-    for i in range(af.varnum):
-        b.variables[i] = w[i] % P
-    for i, h in m.extra.items():
-        b.variables[i] = dec(h)
-    pk, vk = ref_create_keys(b, RefCrs())
-    for r, h in zip(pk.memory_mixed_records, m.mixed_access):
-        pk.witness[3][r] = (pk.witness[3][r] + dec(h)) % P
-    pk.memory_read_records = list(pk.memory_read_records) + list(pk.memory_mixed_records)
-    return ref_prover.prove(pk), vk
+def reference_inputs():
+    c, abi, w, _inputs = _chain()
+    mc, mabi, mw, _inputs = _memory()
+    return [_reference_inputs("honk/plain", c, abi, w),
+            _reference_inputs("honk/provider", mc, mabi, mw)]
 
 
 @pytest.fixture(scope="module")
 def chain():
     """The 16-gate squaring chain of the Shamir and CLI proofs: (circuit,
-    abi, witness, the JAX package's plain proof), made once for the file."""
-    c, abi, w, _inputs = squaring_chain(16, 53)
-    want, _rvk = _reference_plain_proof(c, abi, w)
-    return c, abi, w, want
+    abi, witness, the JAX package's pinned plain proof)."""
+    c, abi, w, _inputs = _chain()
+    return c, abi, w, reference_pins.pinned(_reference_inputs("honk/plain", c, abi, w))
 
 
 def test_rep3_memory_circuit_proof_equals_reference(monkeypatch):
@@ -112,8 +85,8 @@ def test_rep3_memory_circuit_proof_equals_reference(monkeypatch):
     import cocircom_tpu_torch.honk.co_prover as co_prover
 
     monkeypatch.setattr(co_prover, "EDGE_CHUNK", 16)
-    c, abi, w, _inputs = memory_circuit(51)
-    want, _rvk = _reference_provider_proof(c, abi, w)
+    c, abi, w, _inputs = _memory()
+    want = reference_pins.pinned(_reference_inputs("honk/provider", c, abi, w))
     shares = share_field_vec(FR, FR.encode(w), seed=52)
 
     def party(i, net):
@@ -123,7 +96,8 @@ def test_rep3_memory_circuit_proof_equals_reference(monkeypatch):
         return CoUltraHonk(d, TestCrs()).prove(b, shares[i])
 
     proofs = run_parties(party, 3)
-    assert proofs[0] == proofs[1] == proofs[2] == want
+    assert proofs[0] == proofs[1] == proofs[2]
+    assert reference_pins.honk_digest(prover.proof_to_buffer(proofs[0])) == want
     from cocircom_tpu_torch.mpc.driver import PlainDriver
 
     dp = PlainDriver(BN254, device="cpu")
@@ -148,7 +122,8 @@ def test_shamir_chain_proof_equals_reference(chain):
         return CoUltraHonk(d, TestCrs()).prove(b, shares[i])
 
     proofs = run_parties(party, 3)
-    assert proofs[0] == proofs[1] == proofs[2] == want
+    assert proofs[0] == proofs[1] == proofs[2]
+    assert reference_pins.honk_digest(prover.proof_to_buffer(proofs[0])) == want
     _pk, vk = create_keys(UltraCircuitBuilder(acir_to_format(c), w), TestCrs())
     assert verifier.verify(proofs[0], vk)
 
@@ -249,7 +224,8 @@ def test_noir_cli_pipeline(chain, tmp_path, capsys, monkeypatch):
         "generate-proof", "--witness", f"{d}/sw/witness.gz.{i}.shared",
         "--circuit", f"{d}/chain.json", "--net-config", net, "--out", f"{d}/proof.{i}"])
     proofs = [(tmp_path / f"proof.{i}").read_bytes() for i in range(3)]
-    assert proofs[0] == proofs[1] == proofs[2] == ref_prover.proof_to_buffer(want)
+    assert proofs[0] == proofs[1] == proofs[2]
+    assert reference_pins.honk_digest(proofs[0]) == want
     assert _run_cli(["--device", "cpu", "create-vk", "--circuit", f"{d}/chain.json", "--out", f"{d}/vk.json"]) \
         == (0, "")
     capsys.readouterr()
@@ -263,7 +239,6 @@ def test_noir_cli_pipeline(chain, tmp_path, capsys, monkeypatch):
 
 
 # ------------------------------------------------- the co-prover's pieces
-# (short tests last in the file: see ROADMAP, "Test time")
 
 def test_generator_table_equals_host_scalar_mul():
     """GeneratorTable (the commitments' products with the generator: one

@@ -9,10 +9,6 @@ their sums, and so is the Plain proof through `devices=`: other drivers and
 other engines must give the same three points.  The three proofs are made
 once for the module.  tests/test_torch_groth16_rep3.py holds the one-device
 REP3 proof equal to the JAX package's.
-
-(The file's name sorts it early among the port's tests on purpose: it is the
-longest of them, and a test run that hands out files in name order should
-not start it last.)
 """
 
 import pytest

@@ -4,24 +4,24 @@ proof in the port against the JAX package, tolerance 0.
 A hand-built R1CS goes through the JAX package's `groth16_setup`; both
 packages load the zkey bytes; `zkey_from_reference` must agree with the
 port's own loader; with `rand` pinned the two Plain proofs are equal and
-verify under both packages' verifiers.
+verify under both packages' verifiers.  The JAX proof is made live here
+and must equal its pinned entry (tests/reference_pins.py): this file is
+the Groth16 anchor of the pins.
 """
+
+import functools
 
 import numpy as np
 import pytest
+import reference_pins
 import torch
 
-import cocircom_tpu.mpc.driver as ref_driver
 import cocircom_tpu_torch.mpc.driver as port_driver
 from cocircom_tpu.fields.params import BN254
 from cocircom_tpu.io.r1cs import R1CS as RefR1CS
-from cocircom_tpu.io.witness import Witness as RefWitness
 from cocircom_tpu.io.zkey import read_groth16_zkey as ref_read_zkey
-from cocircom_tpu.ops.field import get_field as ref_get_field
-from cocircom_tpu.snark.groth16 import CoGroth16 as RefCoGroth16
 from cocircom_tpu.snark.groth16_verify import verify_groth16 as ref_verify
 from cocircom_tpu.snark.setup import groth16_setup as ref_setup
-from cocircom_tpu.snark.shared import split_witness_plain as ref_split_plain
 from cocircom_tpu_torch import convert
 from cocircom_tpu_torch.fields.params import BN254 as PBN254
 from cocircom_tpu_torch.io.r1cs import R1CS
@@ -37,11 +37,23 @@ from torch_port_util import multiplier_chain, same, small_msm_engines
 N_MUL = 20
 
 
-@pytest.fixture(scope="module")
-def circuit():
+@functools.lru_cache(maxsize=None)
+def _circuit():
     r1cs, vals = multiplier_chain(BN254, RefR1CS, N_MUL, 3)
     zkey_bytes, vk = ref_setup(r1cs, seed=b"torch-port")
     return r1cs, vals, zkey_bytes, vk
+
+
+@pytest.fixture(scope="module")
+def circuit():
+    return _circuit()
+
+
+def reference_inputs():
+    """What the JAX package's Plain prover is handed: `rand` draws r = 5, s = 7."""
+    _, vals, zkey_bytes, _ = _circuit()
+    return [{"kind": "groth16/plain", "curve": "bn254", "zkey": zkey_bytes, "witness": vals,
+             "n_public": 2, "rand": [5, 7], "msm_t": 2}]
 
 
 @pytest.fixture()
@@ -52,12 +64,11 @@ def small_engines(monkeypatch):
 
 
 def _pin_rand(monkeypatch):
-    """Both Plain drivers draw r = 5, s = 7 (their own generators differ)."""
-    vals = {"ref": iter([5, 7]), "port": iter([5, 7])}
-    monkeypatch.setattr(ref_driver.PlainDriver, "rand",
-                        lambda self, shape=(): self.fr.encode([next(vals["ref"])])[:, 0])
+    """The port's Plain driver draws r = 5, s = 7, as the reference's does
+    (their own generators differ)."""
+    vals = iter([5, 7])
     monkeypatch.setattr(port_driver.PlainDriver, "rand",
-                        lambda self, shape=(): self.fr.encode([next(vals["port"])])[:, 0])
+                        lambda self, shape=(): self.fr.encode([next(vals)])[:, 0])
 
 
 def test_setup_bytes_equal_and_zkey_loaders_agree(circuit):
@@ -107,10 +118,10 @@ def test_plain_proof_equals_reference_and_verifies(circuit, small_engines, monke
     _pin_rand(monkeypatch)
     publics = [vals[1], vals[2]]
 
-    rfr = ref_get_field(BN254.fr.p, "bn254.fr")
-    rwit = RefWitness(BN254, len(vals), rfr.to_limbs(vals))
-    ref_proof = RefCoGroth16(ref_driver.PlainDriver(BN254)).prove(
-        ref_read_zkey(zkey_bytes), ref_split_plain(rwit, 2))
+    (inputs,) = reference_inputs()
+    live = reference_pins.prove(inputs)
+    assert live == reference_pins.pinned(inputs)
+    ref_proof = reference_pins.groth16_proof(live)
 
     wit = Witness(PBN254, len(vals), ints_to_limbs_np(vals, 8))
     zk = read_groth16_zkey(zkey_bytes, device="cpu")

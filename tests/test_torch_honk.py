@@ -9,13 +9,16 @@ compared exactly (tolerance 0): the ACIR format, the builder's blocks and
 variables, the proving-key polynomials, the Poseidon2 permutation and the
 transcript's challenges, the plain proof's field elements and its buffer
 bytes; the port's verifier accepts the proof and refuses a tampered one or
-a changed public input, as the JAX verifier does.
+a changed public input, as the JAX verifier does.  The JAX proofs are
+made live here and must equal their pinned entries
+(tests/reference_pins.py): this file is the UltraHonk anchor of the pins.
 """
 
 import dataclasses
 import random
 
 import pytest
+import reference_pins
 
 from cocircom_tpu.honk import prover as ref_prover
 from cocircom_tpu.honk import verifier as ref_verifier
@@ -40,6 +43,16 @@ FIXTURES = {
     "poseidon": lambda: poseidon_chain(3, 12),
     "memory": lambda: memory_circuit(13),
 }
+
+
+def _reference_inputs(name):
+    """What the JAX package's plain prover is handed for a fixture."""
+    c, abi, w, _inputs = FIXTURES[name]()
+    return {"kind": "honk/plain", "program": acir_program_json(c, abi), "witness": w}
+
+
+def reference_inputs():
+    return [_reference_inputs(name) for name in FIXTURES]
 
 
 def _both(name):
@@ -85,6 +98,8 @@ def test_plain_proof_equals_reference_and_verifies(name, keys):
     _pb, pk, vk, _rb, rpk, rvk = keys[name]
     proof = prover.prove(pk)
     want = ref_prover.prove(rpk)
+    assert reference_pins.honk_digest(ref_prover.proof_to_buffer(want)) == \
+        reference_pins.pinned(_reference_inputs(name))
     assert proof == want
     assert prover.proof_to_buffer(proof) == ref_prover.proof_to_buffer(want)
     assert prover.proof_from_buffer(prover.proof_to_buffer(proof)) == proof

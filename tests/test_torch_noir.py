@@ -2,9 +2,9 @@
 noir/solver.py, noir/rep3_driver.py, mpc/lut.py) and the CRS
 (honk/crs.py, `driver_msm`).
 
-Circuits built in code (tests/torch_port_util.py).  The JAX REP3 LUT run
-comes first; tolerance 0 throughout: share components after the limb
-repack, opened witnesses, points by affine value.
+Circuits built in code (tests/torch_port_util.py).  Tolerance 0
+throughout: share components after the limb repack, opened witnesses,
+points by affine value.
 """
 
 import numpy as np

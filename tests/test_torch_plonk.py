@@ -6,8 +6,8 @@ which both verifiers accept (and refuse with a changed public input).
 
 The fixture is a multiplier chain plus one constraint with a three-term
 side (two additions, the second reading the first), 15 gates, domain 16.
-The long proof comes first: `--dist loadfile` hands a worker its next file
-when two tests of its current one are left.
+The JAX proof is made live here and must equal its pinned entry
+(tests/reference_pins.py): this file is the PLONK anchor of the pins.
 """
 
 import random
@@ -15,17 +15,15 @@ import warnings
 
 import numpy as np
 import pytest
+import reference_pins
 import torch
 from cocircom_tpu.fields.params import BLS12_381, BN254
-from cocircom_tpu.io.jsonio import dump_plonk_proof as ref_dump
 from cocircom_tpu.io.plonk_zkey import read_plonk_zkey as ref_read
 from cocircom_tpu.io.r1cs import R1CS as RefR1CS
 from cocircom_tpu.mpc.driver import PlainDriver as RefPlainDriver
 from cocircom_tpu.ops.field import get_field as ref_get_field
-from cocircom_tpu.snark.plonk import CoPlonk as RefCoPlonk
 from cocircom_tpu.snark.plonk_setup import plonk_setup as ref_setup
 from cocircom_tpu.snark.plonk_verify import verify_plonk as ref_verify
-from cocircom_tpu.snark.shared import SharedWitness as RefSharedWitness
 from cocircom_tpu_torch.fields.params import BN254 as PBN254
 from cocircom_tpu_torch.fields.params import curve_by_name
 from cocircom_tpu_torch.io.jsonio import dump_plonk_proof, parse_plonk_proof
@@ -49,6 +47,17 @@ def _chain(ref_curve):
     return r1cs, port, vals
 
 
+def _reference_inputs(zkey_bytes, vals):
+    """What the JAX package's Plain prover is handed."""
+    return {"kind": "plonk/plain", "curve": "bn254", "zkey": zkey_bytes, "public": vals[:3],
+            "private": vals[3:], "deterministic_blinding": True, "msm_t": 2}
+
+
+def reference_inputs():
+    r1cs, _, vals = _chain(BN254)
+    return [_reference_inputs(ref_setup(r1cs, seed=SEED)[0], vals)]
+
+
 def test_plain_proof_equals_reference_and_verifies(monkeypatch):
     monkeypatch.setenv("COCIRCOM_INSECURE_DETERMINISTIC", "1")
     restore = small_msm_engines(monkeypatch)
@@ -69,10 +78,10 @@ def test_plain_proof_equals_reference_and_verifies(monkeypatch):
             warnings.simplefilter("error", DeprecationWarning)
             proof = CoPlonk(d, deterministic_blinding=True).prove(zk, shared)
 
-        rd = RefPlainDriver(BN254)
-        rshared = RefSharedWitness(vals[:3], rd.fr.encode(vals[3:]))
-        ref_proof = RefCoPlonk(rd, deterministic_blinding=True).prove(ref_read(ref_bytes), rshared)
-        assert dump_plonk_proof(pr1cs.curve, proof) == ref_dump(BN254, ref_proof)
+        inputs = _reference_inputs(ref_bytes, vals)
+        ref_json = reference_pins.prove(inputs)
+        assert ref_json == reference_pins.pinned(inputs)
+        assert dump_plonk_proof(pr1cs.curve, proof) == ref_json
 
         assert verify_plonk(vk, proof, publics)
         assert ref_verify(ref_vk, {**proof, "curve": BN254}, publics)

@@ -2,12 +2,10 @@
 Plain proof: with deterministic blinding an opened value does not depend on
 how it was shared, so the 3-party REP3 and Shamir (t = 1) proofs must be
 byte-equal, as JSON, to the reference's one Plain proof of the same witness
-(computed once for the file).  One more REP3 proof with random blinding must
-verify, with its five round spans.
+(pinned: tests/reference_pins.py).  One more REP3 proof with random
+blinding must verify, with its five round spans.
 
-The fixture is `test_torch_plonk.py`'s.  The long proofs come first:
-`--dist loadfile` hands a worker its next file when two tests of its
-current one are left.
+The fixture is `test_torch_plonk.py`'s.
 """
 
 import functools
@@ -17,20 +15,17 @@ import cocircom_tpu.utils.chacha as ref_chacha
 import cocircom_tpu_torch.mpc.rep3 as port_rep3
 import cocircom_tpu_torch.utils.chacha as port_chacha
 import pytest
+import reference_pins
 import torch
 from cocircom_tpu.fields.params import BN254
-from cocircom_tpu.io.jsonio import dump_plonk_proof as ref_dump
-from cocircom_tpu.io.plonk_zkey import read_plonk_zkey as ref_read
+from cocircom_tpu.io.jsonio import parse_plonk_proof as ref_parse
 from cocircom_tpu.io.r1cs import R1CS as RefR1CS
-from cocircom_tpu.mpc.driver import PlainDriver as RefPlainDriver
 from cocircom_tpu.mpc.runner import run_parties as ref_run_parties
 from cocircom_tpu.mpc.shamir import ShamirDriver as RefShamirDriver
 from cocircom_tpu.mpc.shamir import share_field_vec_shamir as ref_share_shamir
 from cocircom_tpu.ops.field import get_field as ref_get_field
-from cocircom_tpu.snark.plonk import CoPlonk as RefCoPlonk
 from cocircom_tpu.snark.plonk_setup import plonk_setup as ref_setup
 from cocircom_tpu.snark.plonk_verify import verify_plonk as ref_verify
-from cocircom_tpu.snark.shared import SharedWitness as RefSharedWitness
 from cocircom_tpu_torch.fields.params import BN254 as PBN254
 from cocircom_tpu_torch.io.jsonio import dump_plonk_proof
 from cocircom_tpu_torch.io.plonk_zkey import read_plonk_zkey
@@ -50,16 +45,27 @@ SEED = b"torch-port-plonk-mpc"
 
 
 @functools.lru_cache(maxsize=None)
+def _circuit():
+    r1cs, vals = plonk_chain(BN254, RefR1CS, 12, 5)
+    zkey_bytes, vk = ref_setup(r1cs, seed=SEED)
+    return zkey_bytes, vk, vals
+
+
+def reference_inputs():
+    """What the JAX package's Plain prover is handed."""
+    zkey_bytes, _, vals = _circuit()
+    return [{"kind": "plonk/plain", "curve": "bn254", "zkey": zkey_bytes, "public": vals[:3],
+             "private": vals[3:], "deterministic_blinding": True, "msm_t": 2}]
+
+
+@functools.lru_cache(maxsize=None)
 def _reference():
     """(zkey bytes, vk, witness values, the JAX package's Plain proof JSON
     with deterministic blinding)."""
-    r1cs, vals = plonk_chain(BN254, RefR1CS, 12, 5)
-    zkey_bytes, vk = ref_setup(r1cs, seed=SEED)
-    rd = RefPlainDriver(BN254)
-    shared = RefSharedWitness(vals[:3], rd.fr.encode(vals[3:]))
-    proof = RefCoPlonk(rd, deterministic_blinding=True).prove(ref_read(zkey_bytes), shared)
-    assert ref_verify(vk, proof, vals[1:3])
-    return zkey_bytes, vk, vals, ref_dump(BN254, proof)
+    zkey_bytes, vk, vals = _circuit()
+    ref_json = reference_pins.pinned(reference_inputs()[0])
+    assert ref_verify(vk, ref_parse(ref_json), vals[1:3])
+    return zkey_bytes, vk, vals, ref_json
 
 
 @pytest.fixture

@@ -2,14 +2,12 @@
 the share/combine, mul/open/inv/rand and EC open cases of
 tests/test_shamir.py through both packages, the REP3 -> Shamir bridge, and
 a 3-party (t = 1) co-Groth16 proof equal point for point to the
-reference's and accepted by both verifiers.
-
-The long proof comes first: `--dist loadfile` hands a worker its next file
-when two tests of its current one are left.
+reference's pinned proof (tests/reference_pins.py) and accepted by both
+verifiers.
 """
 
+import functools
 import random
-import threading
 
 import cocircom_tpu.mpc.rep3 as ref_rep3
 import cocircom_tpu.utils.chacha as ref_chacha
@@ -17,18 +15,17 @@ import cocircom_tpu_torch.mpc.rep3 as port_rep3
 import cocircom_tpu_torch.utils.chacha as port_chacha
 import jax
 import jax.numpy as jnp
+import reference_pins
 import torch
 from cocircom_tpu.fields.params import BN254
 from cocircom_tpu.io.r1cs import R1CS as RefR1CS
 from cocircom_tpu.io.witness import Witness as RefWitness
-from cocircom_tpu.io.zkey import read_groth16_zkey as ref_read_zkey
 from cocircom_tpu.mpc.bridges import translate_rep3_to_shamir as ref_translate
 from cocircom_tpu.mpc.runner import run_parties as ref_run_parties
 from cocircom_tpu.mpc.shamir import ShamirDriver as RefShamirDriver
 from cocircom_tpu.mpc.shamir import combine_field_shares_shamir as ref_combine
 from cocircom_tpu.mpc.shamir import share_field_vec_shamir as ref_share
 from cocircom_tpu.ops.field import get_field as ref_get_field
-from cocircom_tpu.snark.groth16 import CoGroth16 as RefCoGroth16
 from cocircom_tpu.snark.groth16_verify import verify_groth16 as ref_verify
 from cocircom_tpu.snark.setup import groth16_setup as ref_setup
 from cocircom_tpu.snark.shared import split_witness_shamir as ref_split_shamir
@@ -46,59 +43,60 @@ from cocircom_tpu_torch.pairing.tower import Tower
 from cocircom_tpu_torch.snark.groth16 import CoGroth16
 from cocircom_tpu_torch.snark.groth16_verify import verify_groth16
 from cocircom_tpu_torch.snark.shared import split_witness_shamir
-from torch_port_util import multiplier_chain, same, small_msm_engines
+from torch_port_util import multiplier_chain, pin_rep3_seeds, run_named, same, small_msm_engines
 
 RFR = ref_get_field(BN254.fr.p, "bn254.fr")
 FR = get_field(PBN254.fr.p, "bn254.fr", "cpu")
 SEEDS = [bytes([0x30 + i]) * 32 for i in range(3)]
 
 
-def _pinned_seed():
-    return SEEDS[int(threading.current_thread().name.split("-")[-1])]
-
-
 def _pin(monkeypatch):
     """Every party's fresh seeds, in both packages.  The Shamir driver and
     the bridge import `fresh_seed` inside the function, so they are pinned
     on utils.chacha; the REP3 driver imports it at the top of its module."""
-    for mod in (ref_chacha, port_chacha, ref_rep3, port_rep3):
-        monkeypatch.setattr(mod, "fresh_seed", _pinned_seed)
+    pin_rep3_seeds(monkeypatch, ref_chacha, port_chacha, ref_rep3, port_rep3, seeds=SEEDS)
 
 
 def _both(fn_port, fn_ref):
     """Run a 3-party function in each package, its threads named party-i."""
-    def named(fn):
-        def wrapped(i, net):
-            threading.current_thread().name = f"party-{i}"
-            return fn(i, net)
-        return wrapped
+    return run_named(run_parties, fn_port), run_named(ref_run_parties, fn_ref)
 
-    return run_parties(named(fn_port), 3), ref_run_parties(named(fn_ref), 3)
+
+@functools.lru_cache(maxsize=None)
+def _circuit():
+    r1cs, vals = multiplier_chain(BN254, RefR1CS, 12, 5)
+    zkey_bytes, vk = ref_setup(r1cs, seed=b"torch-port-shamir")
+    return vals, zkey_bytes, vk
+
+
+def reference_inputs():
+    """What the JAX package's Shamir prover is handed."""
+    vals, zkey_bytes, _ = _circuit()
+    return [{"kind": "groth16/shamir", "curve": "bn254", "zkey": zkey_bytes, "witness": vals,
+             "n_public": 2, "threshold": 1, "n_parties": 3, "split_seed": 77,
+             "prf_seeds": SEEDS, "msm_t": 2}]
 
 
 def test_shamir_groth16_proof_equals_reference_and_verifies(monkeypatch):
     restore = small_msm_engines(monkeypatch)
     try:
         _pin(monkeypatch)
-        r1cs, vals = multiplier_chain(BN254, RefR1CS, 12, 5)
-        zkey_bytes, vk = ref_setup(r1cs, seed=b"torch-port-shamir")
+        vals, zkey_bytes, vk = _circuit()
         publics = [vals[1], vals[2]]
         zk = read_groth16_zkey(zkey_bytes, device="cpu")
         shares = split_witness_shamir(Witness(PBN254, len(vals), ints_to_limbs_np(vals, 8)), 2,
                                       1, 3, seed=77, device="cpu")
-        rzk = ref_read_zkey(zkey_bytes)
         rshares = ref_split_shamir(RefWitness(BN254, len(vals), RFR.to_limbs(vals)), 2, 1, 3,
                                    seed=77)
         for s, rs in zip(shares, rshares):
             assert same(s.witness, rs.witness)
 
-        proofs, ref_proofs = _both(
-            lambda i, net: CoGroth16(ShamirDriver(PBN254, net, 1, device="cpu")).prove(
-                zk, shares[i]),
-            lambda i, net: RefCoGroth16(RefShamirDriver(BN254, net, 1)).prove(rzk, rshares[i]))
+        proofs = run_named(run_parties, lambda i, net: CoGroth16(
+            ShamirDriver(PBN254, net, 1, device="cpu")).prove(zk, shares[i]))
         assert proofs[0] == proofs[1] == proofs[2]
+        ref_proof = reference_pins.groth16_proof(reference_pins.pinned(reference_inputs()[0]))
         for k in ("pi_a", "pi_b", "pi_c"):
-            assert proofs[0][k] == ref_proofs[0][k]
+            assert proofs[0][k] == ref_proof[k]
         pvk = dict(vk, curve=PBN254)
         assert verify_groth16(pvk, proofs[0], publics)
         assert not verify_groth16(pvk, proofs[0], [publics[0] + 1, publics[1]])

@@ -20,14 +20,14 @@ torch.set_num_threads(2)
 PARTY_SEEDS = [bytes([i + 1]) * 32 for i in range(3)]
 
 
-def pin_rep3_seeds(monkeypatch, *modules):
-    """Party i's REP3 driver draws PARTY_SEEDS[i] as its PRF seed in every
+def pin_rep3_seeds(monkeypatch, *modules, seeds=PARTY_SEEDS):
+    """Party i's REP3 driver draws seeds[i] as its PRF seed in every
     module named: parties construct their drivers in any order, so the
     seed is chosen by the calling thread's name (see `run_named`)."""
     import threading
 
     def pinned():
-        return PARTY_SEEDS[int(threading.current_thread().name.split("-")[-1])]
+        return seeds[int(threading.current_thread().name.split("-")[-1])]
 
     for m in modules:
         monkeypatch.setattr(m, "fresh_seed", pinned)
