@@ -445,7 +445,7 @@ def phase_kernels(curve, device) -> list:
                                               ec_add_g2_plain, ec_add_plain, ec_madd,
                                               ec_wave_add, ec_wave_add_g2, ec_wave_add_g2_plain,
                                               g1_ops, g2_ops, leaves, madd_wave_plain, pmap)
-    from cocircom_tpu_torch.ops.field import get_field, mont_mul_plain
+    from cocircom_tpu_torch.ops.field import add_plain, get_field, mont_mul_plain, sub_plain
     from cocircom_tpu_torch.ops.msm import MSM
     from cocircom_tpu_torch.ops.ntt import (ntt_columns, ntt_columns_plain, ntt_engine,
                                             ntt_small, ntt_small_plain, power_table)
@@ -519,6 +519,47 @@ def phase_kernels(curve, device) -> list:
     pms = timed_plain(lambda: mont_mul_plain(f1, a, b))
     record("mont_mul", "mont_mul.cu", "cocircom_tpu/ops/pallas_field.py:593", err, ms, pms,
            3 * W * n, mpm * n, [L, n])
+
+    # ---- field_add: add and sub mod p at the paths' shapes, over both
+    # fields of the curve, against add_plain / sub_plain: (L, 2^20) pairs
+    # (the Groth16 quotient's a b - c; the row's ms, a sub), one operand a
+    # single element, (L, 2^17) negations (the MSM's signed affine rows of a
+    # chunk), and the co-UltraHonk sumcheck's (L, 8, 2^15) edge tensors of
+    # 2^16 rows, with a public constant (L, 1, 1) broadcast either side;
+    # edge values in every operand ----
+    def add_cases(f):
+        n, e = 1 << 20, 1 << 15
+        a, b = rand_field(f, (n,), gen), rand_field(f, (n,), gen)
+        a[:, :64] = edge(f, 64)
+        b[:, :64] = edge(f, 64).roll(1, dims=1)
+        ea, eb = rand_field(f, (8, e), gen), rand_field(f, (8, e), gen)
+        ea[:, :, :64] = edge(f, 8 * 64).reshape(f.L, 8, 64)
+        eb[:, :, :64] = ea[:, :, :64].roll(1, dims=2)
+        one = eb[:, 3:4, 7:8].contiguous()
+        chunk = a[:, : 1 << 17]
+        return [(a, b), (a, b[:, 5:6].contiguous()), (torch.zeros_like(chunk), chunk),
+                (ea, eb), (ea, one), (one, ea)]
+
+    err = 0
+    for f in (fr, fq):
+        for x, y in add_cases(f):
+            err = max(err, max_err(f.add(x, y), add_plain(f, x, y)),
+                      max_err(f.sub(x, y), sub_plain(f, x, y)))
+    check(err == 0, f"field_add (L={L}) disagrees with add_plain / sub_plain (max abs err {err})")
+    (a, b), _, _, (ea, eb), (_, one), _ = add_cases(f1)
+    n, ne = a.shape[1], eb.numel() // L
+    edges = {
+        "shape": [L, 8, ne // 8],
+        "ms": time_cuda(lambda: f1.add(ea, eb), 200),
+        "plain_ms": timed_plain(lambda: add_plain(f1, ea, eb)),
+        "bound_ms": bound(3 * W * ne, 0)[0],
+        "ms_constant": time_cuda(lambda: f1.sub(ea, one), 200),
+        "bound_ms_constant": bound(2 * W * ne + W, 0)[0]}
+    ms = time_cuda(lambda: f1.sub(a, b), 50)
+    pms = timed_plain(lambda: sub_plain(f1, a, b))
+    record("field_add", "field_add.cu", None, err, ms, pms, 3 * W * n, 0, [L, n],
+           honk_edges=edges)
+    del a, b, ea, eb, one
 
     # ---- K2 ntt_butterfly: a whole transform below 2^12 points, one launch:
     # 2^9 (prove_small's domain: the row's ms) and 2^11 (the largest the
@@ -3356,6 +3397,8 @@ def main() -> None:
                                   for name, r in runs.items()}})
 
     if set(phases) != set(ALL_PHASES):
+        if rows:
+            emit({"kernels": rows})
         emit({"phase": "partial", "phases": phases,
               "launches": {k: v for k, v in counts.items() if v},
               "seconds": round(time.perf_counter() - t_start, 1)})

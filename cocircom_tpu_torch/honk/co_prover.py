@@ -10,15 +10,23 @@ parse/builder_variable.rs (public/shared circuit values).
 Batched redesigns vs the reference (as the JAX package's co_prover.py):
   * relation accumulation runs the SAME formulas as the plain prover
     (relations.py) through the Pub/Sh wrapper algebra (co_alg.py) over
-    whole (L, 8, E) edge tensors — every share product is ONE batched
-    communication round; the reference's co relations call mul_many per
-    edge (O(circuit) rounds per sumcheck round);
+    whole (L, 8, E) edge tensors, and the share products of one
+    multiplicative depth, across all 26 subrelations, are ONE batched
+    communication round (`CoAlg.batched`): four a sumcheck round where the
+    reference's co relations call mul_many per relation and edge;
   * z_perm uses the Ozdemir-Boneh constant-round prefix product
     (driver.prefix_mul) instead of a sequential scan;
-  * known-tau CRS commits are local evaluations at tau + one
-    public-point scalar mul, opened in batches; the final KZG quotient
-    commitment is q(tau)*G = pi(tau)/(tau-x)*G — no coefficient-wise
-    long division on shares.
+  * the setup commits the shares (`commit_shares`, `commit_opening` of
+    honk/crs.py), the polynomials committed together in one call:
+    (w_l, w_r, w_o), (read counts, read tags, w_4), the lookup inverses,
+    z_perm, the log n ZeroMorph quotients (zero-padded to one length),
+    C_q, and the KZG quotient.  Over a setup of points (PointCrs), as
+    upstream CoUtils::commit, each is an MSM over the shares (the driver's
+    msm_g1_many, then open_point), the KZG quotient computed as
+    coefficients on the shares (`opening_quotient`: the division by X - x
+    is linear).  Over a known-tau setup (TestCrs, tests and --crs test)
+    each is a local evaluation at tau and one product with the generator
+    (`open_gen`), the KZG quotient's q(tau)*G = pi(tau)/(tau-x)*G.
 
 Differences from the JAX package, none of which changes a proof byte:
   * the sumcheck's tensors shrink with each round (the JAX package pads
@@ -31,7 +39,7 @@ Differences from the JAX package, none of which changes a proof byte:
   * the commitments' products with the generator go through a window
     table (GeneratorTable) instead of a double-and-add, and under Shamir
     each party sends its share point already Lagrange-weighted
-    (`_open_gen`): the same points, far fewer curve adds.
+    (`open_gen`): the same points, far fewer curve adds.
 
 The proof bytes equal the plain prover's for the same witness and CRS
 (asserted in tests): the MPC changes only WHO computes, not what.
@@ -160,6 +168,77 @@ class GeneratorTable:
 
 _GEN_TABLES: dict = {}
 
+SPAN_COMMIT = "honk.commit"  # the setup's commit of a group of shared polynomials
+
+
+def _gen_table(d, gen) -> GeneratorTable:
+    """The window table of the host point `gen` on d's device, made once."""
+    key = (d.device, gen[0].v, gen[1].v)
+    if key not in _GEN_TABLES:
+        _GEN_TABLES[key] = GeneratorTable(d.g1, gen)
+    return _GEN_TABLES[key]
+
+
+def open_gen(d, share, gen) -> list:
+    """share * G opened (G = gen, a public host point), for a share of a
+    (k,) vector: host affine points.  Each share component's scalars go
+    through the generator's window table, so a product is local and cheap;
+    the opening is the driver's point opening.  Under Shamir each party
+    sends every receiver its share already weighted by the receiver's
+    Lagrange coefficient (lam * s_j * G in place of s_j * G: the same
+    information, lam public and non-zero), so the receivers add points
+    where `open_point` would multiply each by a full-width scalar."""
+    tab = _gen_table(d, gen)
+    if d.protocol == "shamir":
+        return d.g1.decode_points(_open_gen_shamir(d, share, tab))
+    sc = d.to_scalars(share)
+    if isinstance(sc, Rep3FieldShare):
+        pts = Rep3PointShare(tab.mul(sc.a), tab.mul(sc.b))
+    else:
+        pts = tab.mul(sc)
+    return d.g1.decode_points(d.open_point(d.g1, pts))
+
+
+def _open_gen_shamir(d, share, tab):
+    from ..mpc.shamir import _lagrange_at_zero
+
+    n, t, me = d.n, d.t, d.id
+    k = share.shape[1]
+    weighted = []
+    for j in range(t + 1):
+        # receiver r = me + j combines parties r, r-1, ..., r-t; this
+        # party is its j-th
+        r = (me + j) % n
+        lam = _lagrange_at_zero(d.curve.fr, [((r - m) % n) + 1 for m in range(t + 1)])[j]
+        weighted.append(d.mul_public(share, d.fr.const_mont(lam)[:, None]))
+    pts = tab.mul(d.to_scalars(d.concat_shares(*weighted)))  # (L, (t+1) k)
+    for j in range(1, t + 1):
+        d.net.send((me + j) % n, pmap(lambda c, j=j: c[:, j * k:(j + 1) * k], pts))
+    acc = pmap(lambda c: c[:, :k], pts)
+    for j in range(1, t + 1):
+        acc = d.g1.add(acc, ProjPoint(*d._recv((me - j) % n)))
+    return acc
+
+
+def opening_quotient(d, pi, x: int):
+    """Shares of the KZG quotient (pi(X) - pi(x)) / (X - x) of a shared pi
+    of n coefficients, as coefficients: the n - 1 of
+    `zeromorph.compute_opening_proof`'s division by (X - x), which are
+    q_i = -x^-(i+1) sum_{j <= i} pi_j x^j.  Linear in pi, so each party
+    computes them on its own shares: a product with the powers of x, prefix
+    sums, a product with the powers of -1/x."""
+    from ..ops.ntt import power_table
+
+    f = d.fr
+    n = leaves(pi)[0].shape[-1]
+    if x % P == 0:
+        return d.slice_share(pi, 1, n)
+    x_inv = pow(x, -1, P)
+    terms = d.mul_public(pi, power_table(f, x, n))
+    sums = pmap(lambda c: f.prefix_sums(c, axis=1), terms)
+    scale = f.mont_mul(power_table(f, x_inv, n), f.const_mont((P - x_inv) % P)[:, None])
+    return d.slice_share(d.mul_public(sums, scale), 0, n - 1)
+
 
 class CoUltraHonk:
     def __init__(self, driver, crs, tracer=None):
@@ -178,59 +257,12 @@ class CoUltraHonk:
         return torch.as_tensor(np.asarray(ints, np.int64), device=self.d.device)
 
     def _commit_open(self, poly_shares: list) -> list:
-        """commit(poly) = poly(tau) * G for each shared polynomial (known-tau
-        CRS), opened: host affine points.  The evaluations are local."""
-        d = self.d
-        evals = [d.evaluate_poly_public(ps, self.crs.tau) for ps in poly_shares]
-        return self._open_gen(d.stack_shares(evals))
-
-    def _gen_table(self):
-        d = self.d
-        key = (d.device, self.crs.g1[0].v, self.crs.g1[1].v)
-        if key not in _GEN_TABLES:
-            _GEN_TABLES[key] = GeneratorTable(d.g1, self.crs.g1)
-        return _GEN_TABLES[key]
-
-    def _open_gen(self, share) -> list:
-        """share * G opened (G public), for a share of a (k,) vector: host
-        affine points.  Each share component's scalars go through the
-        generator's window table, so a product is local and cheap; the
-        opening is the driver's point opening.  Under Shamir each party
-        sends every receiver its share already weighted by the receiver's
-        Lagrange coefficient (lam * s_j * G in place of s_j * G: the same
-        information, lam public and non-zero), so the receivers add points
-        where `open_point` would multiply each by a full-width scalar."""
-        d = self.d
-        tab = self._gen_table()
-        if d.protocol == "shamir":
-            return d.g1.decode_points(self._open_gen_shamir(share, tab))
-        sc = d.to_scalars(share)
-        if isinstance(sc, Rep3FieldShare):
-            pts = Rep3PointShare(tab.mul(sc.a), tab.mul(sc.b))
-        else:
-            pts = tab.mul(sc)
-        return d.g1.decode_points(d.open_point(d.g1, pts))
-
-    def _open_gen_shamir(self, share, tab):
-        from ..mpc.shamir import _lagrange_at_zero
-
-        d = self.d
-        n, t, me = d.n, d.t, d.id
-        k = share.shape[1]
-        weighted = []
-        for j in range(t + 1):
-            # receiver r = me + j combines parties r, r-1, ..., r-t; this
-            # party is its j-th
-            r = (me + j) % n
-            lam = _lagrange_at_zero(d.curve.fr, [((r - m) % n) + 1 for m in range(t + 1)])[j]
-            weighted.append(d.mul_public(share, self.f.const_mont(lam)[:, None]))
-        pts = tab.mul(d.to_scalars(d.concat_shares(*weighted)))  # (L, (t+1) k)
-        for j in range(1, t + 1):
-            d.net.send((me + j) % n, pmap(lambda c, j=j: c[:, j * k:(j + 1) * k], pts))
-        acc = pmap(lambda c: c[:, :k], pts)
-        for j in range(1, t + 1):
-            acc = d.g1.add(acc, ProjPoint(*d._recv((me - j) % n)))
-        return acc
+        """The commitments to shared polynomials of one length, opened: host
+        affine points, under one `honk.commit` span.  The setup commits
+        them (`commit_shares`): an MSM over the shares (PointCrs) or local
+        evaluations at a known tau (TestCrs)."""
+        with self.tr.span(SPAN_COMMIT):
+            return self.crs.commit_shares(self.d, poly_shares)
 
     def _open_frs(self, share) -> list[int]:
         vals = self.f.decode(self.d.open_many(share))
@@ -383,13 +415,17 @@ class CoUltraHonk:
             public_input_delta = compute_public_input_delta(
                 beta, gamma, public_inputs, n, pk.pub_inputs_offset)
             b_c = alg.pub_of_int(beta)
-            num = None
-            den = None
-            for col, wn in enumerate(("w_l", "w_r", "w_o", "w_4")):
-                fac_n = w[wn] + q[PRECOMPUTED_NAMES[17 + col]] * b_c + g_c
-                fac_d = w[wn] + q[PRECOMPUTED_NAMES[13 + col]] * b_c + g_c
-                num = fac_n if num is None else num * fac_n
-                den = fac_d if den is None else den * fac_d
+
+            def factors():
+                num = den = None
+                for col, wn in enumerate(("w_l", "w_r", "w_o", "w_4")):
+                    fac_n = w[wn] + q[PRECOMPUTED_NAMES[17 + col]] * b_c + g_c
+                    fac_d = w[wn] + q[PRECOMPUTED_NAMES[13 + col]] * b_c + g_c
+                    num = fac_n if num is None else num * fac_n
+                    den = fac_d if den is None else den * fac_d
+                return num, den
+
+            num, den = alg.batched(factors)  # the two products of a depth as one round
             pref_num = d.prefix_mul(num.v)
             pref_den = d.prefix_mul(den.v)
             del num, den, w, q
@@ -525,9 +561,11 @@ class CoUltraHonk:
                 # skipped (relations.FAMILIES); every party skips alike
                 live = [bool((xp[:, pub_names.index(q)] != 0).any()) if q else True
                         for _fn, _k, q in relations.FAMILIES]
-                subvals = []
-                for (fn, k, _q), on in zip(relations.FAMILIES, live):
-                    subvals += fn(ents, rp_w) if on else [None] * k
+                # every family's products of one multiplicative depth as
+                # one mul_vec round
+                subvals = alg.batched(lambda: [
+                    v for (fn, k, _q), on in zip(relations.FAMILIES, live)
+                    for v in (fn(ents, rp_w) if on else [None] * k)])
                 per_edge = (alg.mul_elems - before) // (e1 - e0)
                 del ents, xp, xs
                 shape = (f.L, BATCHED_LENGTH, e1 - e0)
@@ -628,7 +666,9 @@ class CoUltraHonk:
         quotients = qs
         del f_poly, g_cur
 
-        com_qk = self._commit_open(quotients)
+        # one engine call: every q_k zero-padded to the largest, 2^(log n - 1)
+        com_qk = self._commit_open([pmap(lambda c: _place(c, 0, n // 2), qk)
+                                    for qk in quotients])
         for idx, pt in enumerate(com_qk):
             t.send_point("ZM:C_q_%d" % idx, pt)
         gen = (self.crs.g1[0].v, self.crs.g1[1].v)
@@ -679,7 +719,6 @@ class CoUltraHonk:
 
         pi = d.add(zeta_x, d.mul_public(z_x, sc(z)))
 
-        # KZG open: commit((pi - 0)/(X - x)) = pi(tau)/(tau - x) * G
-        s_pi = d.evaluate_poly_public(pi, self.crs.tau)
-        s_q = d.mul_public(s_pi, f.const_mont(pow((self.crs.tau - x) % P, -1, P)))
-        t.send_point("KZG:W", self._open_gen(d.stack_shares([s_q]))[0])
+        # KZG open: commit((pi - pi(x)) / (X - x)), pi(x) = 0
+        with self.tr.span(SPAN_COMMIT):
+            t.send_point("KZG:W", self.crs.commit_opening(d, pi, x))

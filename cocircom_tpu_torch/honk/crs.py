@@ -2,7 +2,7 @@
 
 The reference loads the Aztec Ignition BN254 setup from ~/.bb-crs g1/g2
 .dat files (parse/crs.rs:44-66; the 6 GB g1.dat is NOT committed to the
-repo, only bn254_g2.dat is). This build therefore supports two modes:
+repo, only bn254_g2.dat is). This build therefore supports three modes:
 
 1. TestCrs — an INSECURE locally-generated setup with a known tau
    (deterministic, for tests/benches). Knowing tau makes commitment a
@@ -13,6 +13,11 @@ repo, only bn254_g2.dat is). This build therefore supports two modes:
    big-endian x||y per point, g2: single 128-byte point; format per
    crs.rs read_transcript_g1/g2). Commitment = MSM over the points
    (routed through a driver's MSM engine for large n: driver_msm).
+3. PointCrs — the setup's G1 points alone, held on a device in the MSM
+   engine's form, and g2_x: no tau.  The co-prover commits through it by
+   an MSM over the shares of each polynomial (co-noir's CoUtils::commit).
+   Read from .dat files, or made from a tau by whoever builds the setup
+   (tests and the benchmark), which then keeps tau to itself.
 """
 
 from __future__ import annotations
@@ -70,6 +75,28 @@ class TestCrs:
         if acc == 0:
             return None
         return ec_mul(self.g1, acc)
+
+    def commit_many(self, polys) -> list:
+        """commit() of each polynomial."""
+        return [self.commit(p) for p in polys]
+
+    def commit_shares(self, d, polys) -> list:
+        """The commitments to a driver's shared polynomials, opened (host
+        affine points): each poly(tau) * G, the evaluations local, the
+        products with the generator one opening (co_prover.open_gen)."""
+        from .co_prover import open_gen
+
+        evals = [d.evaluate_poly_public(ps, self.tau) for ps in polys]
+        return open_gen(d, d.stack_shares(evals), self.g1)
+
+    def commit_opening(self, d, pi, x: int):
+        """The commitment to the KZG quotient (pi(X) - pi(x)) / (X - x) of a
+        shared pi with pi(x) = 0, opened: pi(tau) / (tau - x) * G."""
+        from .co_prover import open_gen
+
+        s_pi = d.evaluate_poly_public(pi, self.tau)
+        s_q = d.mul_public(s_pi, d.fr.const_mont(pow((self.tau - x) % P_FR, -1, P_FR)))
+        return open_gen(d, d.stack_shares([s_q]), self.g1)[0]
 
 
 def g1_point_to_ints(pt) -> tuple[int, int] | None:
@@ -136,6 +163,18 @@ class FileCrs:
             raise ValueError("polynomial larger than the CRS")
         return self._msm(self.points[: len(scalars)], scalars)
 
+    def commit_many(self, polys) -> list:
+        """commit() of each polynomial; polynomials of one length go
+        through one call of the MSM's `many` where it has one (driver_msm:
+        one engine call), so a key's 27 commitments are one MSM call."""
+        many = getattr(self._msm, "many", None)
+        n = len(polys[0]) if polys else 0
+        if many is None or any(len(p) != n for p in polys):
+            return [self.commit(p) for p in polys]
+        if n > len(self.points):
+            raise ValueError("polynomial larger than the CRS")
+        return many(self.points[:n], [[c % P_FR for c in p] for p in polys])
+
 
 def _host_msm(points, scalars, c: int = 8):
     """Host Pippenger (bucket method) over python-int coordinates."""
@@ -169,18 +208,19 @@ def _host_msm(points, scalars, c: int = 8):
 def driver_msm(d):
     """Adapter: route FileCrs commits through a plain Driver's curve/MSM
     engines — the device Pippenger path (ops/msm.py: K5 waves, K4 bucket
-    reduction and Horner) for production-size commits."""
-    from ..ops.curve import pmap
+    reduction and Horner) for production-size commits.  Its `many` takes
+    several scalar lists over the same points as one engine call."""
+
+    def _many(points, scalar_lists):
+        proj = d.g1.encode_points(list(points))
+        vecs = [d.promote_public(d.fr.encode([s % P_FR for s in sc])) for sc in scalar_lists]
+        pts = d.g1.decode_points(d.stack_points(d.msm_g1_many(proj, vecs)))
+        return [None if pt is None else (Fp(pt[0], P_FQ), Fp(pt[1], P_FQ)) for pt in pts]
 
     def _msm(points, scalars):
-        proj = d.g1.encode_points(list(points))
-        res = d.msm_g1(proj, d.promote_public(d.fr.encode(
-            [s % P_FR for s in scalars])))
-        pt = d.g1.decode_points(pmap(lambda co: co.unsqueeze(-1), res))[0]
-        if pt is None:
-            return None
-        return (Fp(pt[0], P_FQ), Fp(pt[1], P_FQ))
+        return _many(points, [scalars])[0]
 
+    _msm.many = _many
     return _msm
 
 
@@ -194,3 +234,90 @@ def read_g2_dat(path: str):
     x = Fp2(Fp(vals[0], P_FQ), Fp(vals[1], P_FQ))
     y = Fp2(Fp(vals[2], P_FQ), Fp(vals[3], P_FQ))
     return (x, y)
+
+
+def write_g2_dat(path: str, pt):
+    """Inverse of read_g2_dat for a host G2 point ((x.c0, x.c1), (y.c0, y.c1))."""
+    with open(path, "wb") as f:
+        for c in (pt[0].c0, pt[0].c1, pt[1].c0, pt[1].c1):
+            f.write(int(c.v).to_bytes(32, "big"))
+
+
+class PointCrs:
+    """A setup of points alone: the first `size` points [tau^i]G1 of a
+    powers-of-tau transcript as one batched ProjPoint on `device` (what the
+    MSM engine takes), the generator (the first point) on the host, and
+    g2_x = [tau]G2.  It holds no tau: a commitment is the MSM of the
+    polynomial's coefficients over the first len(poly) points."""
+
+    def __init__(self, points, g2_x, g1=None):
+        from ..ops.curve import leaves
+
+        self.points = points
+        self.size = leaves(points)[0].shape[-1]
+        self.g2_x = g2_x
+        self.g1 = g1 or _g1_gen()
+
+    @classmethod
+    def from_dat(cls, g1_path: str, g2_path: str, num_points: int, device=None):
+        """The first num_points points of an Ignition-layout g1.dat, and g2.dat."""
+        from ..ops.curve import g1_ops
+
+        ops = g1_ops(BN254, device)
+        pts = read_g1_dat(g1_path, num_points)
+        # the first point is tau^0 G1, the generator (Aztec Ignition)
+        g1 = (Fp(pts[0][0], P_FQ), Fp(pts[0][1], P_FQ))
+        return cls(ops.encode_points(pts), read_g2_dat(g2_path), g1)
+
+    @classmethod
+    def from_tau(cls, tau: int, num_points: int, device=None, piece: int = 1 << 14):
+        """[tau^i]G1 for i < num_points, made on `device` through the
+        generator's window table (a lookup a four-bit window and a tree sum
+        a point, `piece` points at a time) and brought to affine form once.
+        tau is not kept."""
+        import torch
+
+        from ..ops.curve import ProjPoint, g1_ops
+        from ..ops.field import get_field
+        from ..ops.ntt import power_table
+        from .co_prover import GeneratorTable
+
+        ops = g1_ops(BN254, device)
+        fr = get_field(P_FR, BN254.name + ".fr", ops.lane.f.device)
+        table = GeneratorTable(ops, _g1_gen())
+        scalars = fr.from_mont(power_table(fr, tau % P_FR, num_points))
+        xs, ys = [], []
+        for lo in range(0, num_points, piece):
+            x, y = ops.to_affine_limbs(table.mul(scalars[:, lo:lo + piece]))
+            xs.append(x)
+            ys.append(y)
+        x, y = torch.cat(xs, dim=1), torch.cat(ys, dim=1)
+        points = ProjPoint(x, y, ops.lane.f.one_mont((num_points,)).contiguous())
+        return cls(points, ec_mul(_g2_gen(), tau % P_FR))
+
+    def first(self, n: int):
+        """The first n points, for an MSM of n coefficients."""
+        if n > self.size:
+            raise ValueError(f"polynomial of {n} coefficients larger than the CRS ({self.size})")
+        from ..ops.curve import pmap
+
+        return pmap(lambda c: c[..., :n], self.points)
+
+    def commit_shares(self, d, polys) -> list:
+        """The commitments to a driver's shared polynomials of one length,
+        opened (host affine points): the MSM of each polynomial's shares
+        over the first len(poly) points, all of them one engine call
+        (d.msm_g1_many), then one point opening."""
+        from ..ops.curve import leaves
+
+        n = leaves(polys[0])[0].shape[-1]
+        pts = d.msm_g1_many(self.first(n), polys)
+        return d.g1.decode_points(d.open_point(d.g1, d.stack_points(pts)))
+
+    def commit_opening(self, d, pi, x: int):
+        """The commitment to the KZG quotient (pi(X) - pi(x)) / (X - x) of a
+        shared pi, opened: its coefficients computed on the shares
+        (co_prover.opening_quotient), then `commit_shares`."""
+        from .co_prover import opening_quotient
+
+        return self.commit_shares(d, [opening_quotient(d, pi, x)])[0]

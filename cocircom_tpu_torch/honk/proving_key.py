@@ -223,7 +223,7 @@ def _compute_permutation_polys(precomputed, builder, cell_real, n,
 def create_keys(builder: UltraCircuitBuilder, crs):
     """(pk, vk) — commitments to all precomputed polys (builder.rs:94-124)."""
     pk = create_proving_key(builder, crs)
-    commitments = [crs.commit(poly) for poly in pk.precomputed]
+    commitments = crs.commit_many(pk.precomputed)
     vk = VerifyingKey(
         g2_x=crs.g2_x,
         circuit_size=pk.circuit_size,

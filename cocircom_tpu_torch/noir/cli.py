@@ -15,9 +15,12 @@ package's (its noir/cli.py), so either package reads the other's files:
     32-byte BE field elements, ultrahonk types.rs:79-137);
   * vk files are JSON with hex commitments.
 
-CRS: the insecure known-tau TestCrs (--crs test, the default; the real
-Aztec setup's 6 GB g1.dat is not shipped upstream either); pass --crs-seed
-to pin the same tau in every party.
+CRS: --crs file --crs-g1 <g1.dat> --crs-g2 <g2.dat> reads a powers-of-tau
+setup in Aztec Ignition's layout (the first circuit-size points of g1.dat;
+parse/crs.rs): generate-proof commits by MSM over the shares with it
+(honk/crs.py PointCrs), create-vk by the device MSM (FileCrs with
+driver_msm).  --crs test (the default) is the insecure known-tau TestCrs
+for tests; pass --crs-seed to pin the same tau in every party.
 
 Each party of a multi-party run is its own process; --net-config points to
 the JSON file of the circom CLI ({"my_id", "key_path"?, "parties": [{"id",
@@ -210,9 +213,29 @@ def _build_builder(args, driver=None, wshare=None):
     return UltraCircuitBuilder(af, [0] * af.varnum, mpc=m), c
 
 
-def _crs(args, driver=None):
-    from ..honk.crs import TestCrs
+def _circuit_size(builder) -> int:
+    """The proving key's circuit size: the builder finalized (as
+    create_proving_key does it, once), its dyadic size."""
+    if not builder.circuit_finalized:
+        builder.add_gates_to_ensure_all_polys_are_non_zero()
+        builder.finalize_circuit()
+    return builder.compute_dyadic_size()
 
+
+def _crs(args, builder, driver=None, device=None):
+    """The setup of --crs: TestCrs (known tau; evaluated on `driver`'s
+    device when given), or the .dat files' first circuit-size points: on
+    `device` for the co-prover (PointCrs), through `driver`'s MSM for the
+    vk (FileCrs)."""
+    from ..honk.crs import FileCrs, PointCrs, TestCrs, driver_msm
+
+    if args.crs == "file":
+        if not (args.crs_g1 and args.crs_g2):
+            raise SystemExit("--crs file needs --crs-g1 and --crs-g2")
+        n = _circuit_size(builder)
+        if driver is not None:
+            return FileCrs(args.crs_g1, args.crs_g2, n, msm=driver_msm(driver))
+        return PointCrs.from_dat(args.crs_g1, args.crs_g2, n, device)
     seed = (args.crs_seed.encode()
             if args.crs_seed else b"cocircom-tpu insecure test crs")
     return TestCrs(seed, driver=driver)
@@ -244,8 +267,10 @@ def cmd_generate_proof(args):
     kernels.reset_launch_counts()
     with tr.span("builder"):
         builder, _c = _build_builder(args, driver=d, wshare=wshare)
+    with tr.span("setup (--crs)"):
+        crs = _crs(args, builder, device=device)
     with tr.span("generate-proof ultrahonk"):
-        proof = CoUltraHonk(d, _crs(args), tracer=tr).prove(builder, wshare)
+        proof = CoUltraHonk(d, crs, tracer=tr).prove(builder, wshare)
     net.close()
     tr.report()
     with open(args.out, "wb") as fh:
@@ -259,14 +284,15 @@ def _point_json(c):
 
 def cmd_create_vk(args):
     """Verification key JSON (co-noir.rs CreateVK / run_create_vk): the
-    circuit is built on the host, its precomputed polynomials are
-    evaluated at tau on the device (TestCrs with a plain driver)."""
+    circuit is built on the host, its precomputed polynomials committed on
+    the device by a plain driver: evaluated at tau (--crs test) or by MSM
+    over the file's points (--crs file)."""
     from ..honk.proving_key import create_keys
     from ..mpc.driver import PlainDriver
 
     device = _device(args)
     builder, _c = _build_builder(args)
-    _pk, vk = create_keys(builder, _crs(args, PlainDriver(_curve(), device=device)))
+    _pk, vk = create_keys(builder, _crs(args, builder, PlainDriver(_curve(), device=device)))
     data = {
         "circuit_size": vk.circuit_size,
         "num_public_inputs": vk.num_public_inputs,
@@ -305,6 +331,13 @@ def cmd_verify(args):
     ok = verifier.verify(proof, vk)
     print("verification: " + ("OK" if ok else "FAILED"))
     sys.exit(0 if ok else 1)
+
+
+def _crs_args(sp):
+    sp.add_argument("--crs", default="test", choices=["test", "file"])
+    sp.add_argument("--crs-seed", help="--crs test: the seed of tau")
+    sp.add_argument("--crs-g1", help="--crs file: the G1 points (Ignition g1.dat layout)")
+    sp.add_argument("--crs-g2", help="--crs file: [tau]G2 (g2.dat)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -351,15 +384,13 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--witness", required=True, help=".shared witness file")
     sp.add_argument("--circuit", required=True)
     sp.add_argument("--net-config", required=True)
-    sp.add_argument("--crs", default="test", choices=["test"])
-    sp.add_argument("--crs-seed")
+    _crs_args(sp)
     sp.add_argument("--out", required=True)
     sp.set_defaults(fn=cmd_generate_proof)
 
     sp = sub.add_parser("create-vk")
     sp.add_argument("--circuit", required=True)
-    sp.add_argument("--crs", default="test", choices=["test"])
-    sp.add_argument("--crs-seed")
+    _crs_args(sp)
     sp.add_argument("--out", required=True)
     sp.set_defaults(fn=cmd_create_vk)
 

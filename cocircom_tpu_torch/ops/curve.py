@@ -29,7 +29,8 @@ import torch
 
 from ..fields.params import CurveParams
 from . import kernels
-from .field import Field, broadcast_shapes, get_field, mont_mul_plain
+from .field import (Field, add_plain, broadcast_shapes, get_field, mont_mul_plain, neg_plain,
+                    sub_plain)
 
 
 class ProjPoint(NamedTuple):
@@ -134,6 +135,12 @@ class Fq2Lane:
     def _mm(self, a, b):
         return self.f.mont_mul(a, b)
 
+    def _add(self, a, b):
+        return self.f.add(a, b)
+
+    def _sub(self, a, b):
+        return self.f.sub(a, b)
+
     def _pair(self, a, batch):
         return torch.stack([self._bt(a[0], batch), self._bt(a[1], batch)], dim=1)
 
@@ -147,34 +154,34 @@ class Fq2Lane:
 
     def add(self, a, b):
         batch = self._batch2(a, b)
-        r = self.f.add(self._pair(a, batch), self._pair(b, batch))
+        r = self._add(self._pair(a, batch), self._pair(b, batch))
         return (r[:, 0], r[:, 1])
 
     def sub(self, a, b):
         batch = self._batch2(a, b)
-        r = self.f.sub(self._pair(a, batch), self._pair(b, batch))
+        r = self._sub(self._pair(a, batch), self._pair(b, batch))
         return (r[:, 0], r[:, 1])
 
     def mul(self, a, b):
         # Karatsuba with the 3 independent base products STACKED into one
         # mont_mul call
-        f = self.f
         batch = self._batch2(a, b)
         a0, a1 = self._bt(a[0], batch), self._bt(a[1], batch)
         b0, b1 = self._bt(b[0], batch), self._bt(b[1], batch)
-        s = f.add(torch.stack([a0, b0], dim=1), torch.stack([a1, b1], dim=1))
+        s = self._add(torch.stack([a0, b0], dim=1), torch.stack([a1, b1], dim=1))
         lhs = torch.stack([a0, a1, s[:, 0]], dim=1)
         rhs = torch.stack([b0, b1, s[:, 1]], dim=1)
         prod = self._mm(lhs, rhs)
         v0, v1, t = prod[:, 0], prod[:, 1], prod[:, 2]
-        d = f.sub(torch.stack([v0, t], dim=1), torch.stack([v1, v0], dim=1))
-        return (d[:, 0], f.sub(d[:, 1], v1))
+        d = self._sub(torch.stack([v0, t], dim=1), torch.stack([v1, v0], dim=1))
+        return (d[:, 0], self._sub(d[:, 1], v1))
 
     def sqr(self, a):
         return self.mul(a, a)
 
     def neg(self, a):
-        r = self.f.neg(torch.stack([a[0], a[1]], dim=1))
+        s = torch.stack([a[0], a[1]], dim=1)
+        r = self._sub(torch.zeros_like(s), s)
         return (r[:, 0], r[:, 1])
 
     def select(self, mask, a, b):
@@ -232,10 +239,17 @@ class Fq2Lane:
 
 
 class _PlainFq2Lane(Fq2Lane):
-    """Fq2Lane whose multiply is `mont_mul_plain` on either device."""
+    """Fq2Lane whose multiply, add and sub are the plain versions
+    (`mont_mul_plain`, `add_plain`, `sub_plain`) on either device."""
 
     def _mm(self, a, b):
         return mont_mul_plain(self.f, a, b)
+
+    def _add(self, a, b):
+        return add_plain(self.f, a, b)
+
+    def _sub(self, a, b):
+        return sub_plain(self.f, a, b)
 
 
 # ----------------------------------------------------------- plain versions
@@ -243,7 +257,8 @@ class _PlainFq2Lane(Fq2Lane):
 def ec_add_plain(f: Field, b3_mont: torch.Tensor, p: ProjPoint, q: ProjPoint) -> ProjPoint:
     """Complete projective G1 add (RCB16 Alg. 7, a = 0) in plain torch: the
     same function as the CUDA kernel `ec_add`, either device.  The 14
-    products run as three stacked `mont_mul_plain` calls."""
+    products run as three stacked `mont_mul_plain` calls, the adds and
+    subs as `add_plain` / `sub_plain`."""
     batch = tuple(broadcast_shapes(p.x.shape[1:], q.x.shape[1:]))
 
     def bt(c):
@@ -253,21 +268,21 @@ def ec_add_plain(f: Field, b3_mont: torch.Tensor, p: ProjPoint, q: ProjPoint) ->
     x1, y1, z1 = (bt(c) for c in p)
     x2, y2, z2 = (bt(c) for c in q)
     st = lambda *cs: torch.stack(cs, dim=1)  # noqa: E731
-    sums = f.add(st(x1, y1, x1, x2, y2, x2), st(y1, z1, z1, y2, z2, z2))
+    sums = add_plain(f, st(x1, y1, x1, x2, y2, x2), st(y1, z1, z1, y2, z2, z2))
     w1 = mont_mul_plain(f, st(x1, y1, z1, sums[:, 0], sums[:, 1], sums[:, 2]),
                         st(x2, y2, z2, sums[:, 3], sums[:, 4], sums[:, 5]))
     m_xx, m_yy, m_zz = w1[:, 0], w1[:, 1], w1[:, 2]
-    d = f.sub(f.sub(w1[:, 3:6], st(m_xx, m_yy, m_xx)), st(m_yy, m_zz, m_zz))
+    d = sub_plain(f, sub_plain(f, w1[:, 3:6], st(m_xx, m_yy, m_xx)), st(m_yy, m_zz, m_zz))
     t3, t4, xz = d[:, 0], d[:, 1], d[:, 2]
-    t0 = f.add(f.add(m_xx, m_xx), m_xx)
+    t0 = add_plain(f, add_plain(f, m_xx, m_xx), m_xx)
     b3 = b3_mont.reshape((f.L,) + (1,) * (len(batch) + 1))
     w2 = mont_mul_plain(f, st(m_zz, xz), b3)
     t2, y3 = w2[:, 0], w2[:, 1]
-    z3p = f.add(m_yy, t2)
-    t1 = f.sub(m_yy, t2)
+    z3p = add_plain(f, m_yy, t2)
+    t1 = sub_plain(f, m_yy, t2)
     w3 = mont_mul_plain(f, st(t3, t4, t1, y3, z3p, t0), st(t1, y3, z3p, t0, t4, t3))
-    X3 = f.sub(w3[:, 0], w3[:, 1])
-    yz = f.add(st(w3[:, 2], w3[:, 4]), st(w3[:, 3], w3[:, 5]))
+    X3 = sub_plain(f, w3[:, 0], w3[:, 1])
+    yz = add_plain(f, st(w3[:, 2], w3[:, 4]), st(w3[:, 3], w3[:, 5]))
     return ProjPoint(X3, yz[:, 0], yz[:, 1])
 
 
@@ -284,7 +299,8 @@ def ec_madd_plain(f: Field, acc: ProjPoint, rows, valid) -> ProjPoint:
     x2, y2 = t[:L], t[L:]
     keep = valid.reshape(-1) & ~((x2 == 0).all(dim=0) & (y2 == 0).all(dim=0))
     mul = lambda a, b: mont_mul_plain(f, a, b)  # noqa: E731
-    add, sub = f.add, f.sub
+    add = lambda a, b: add_plain(f, a, b)  # noqa: E731
+    sub = lambda a, b: sub_plain(f, a, b)  # noqa: E731
     z1z1 = mul(Z1, Z1)
     u2 = mul(x2, z1z1)
     s2 = mul(y2, mul(Z1, z1z1))
@@ -317,7 +333,7 @@ def ec_wave_add_plain(f: Field, b3_mont: torch.Tensor, acc: ProjPoint, rows, neg
     batch = tuple(acc.x.shape[1:])
     t = rows.t()
     x2, y2, z2 = (t[k * L:(k + 1) * L].reshape((L,) + batch) for k in range(3))
-    y2 = f.select(neg.reshape(batch), f.neg(y2), y2)
+    y2 = f.select(neg.reshape(batch), neg_plain(f, y2), y2)
     added = ec_add_plain(f, b3_mont, acc, ProjPoint(x2, y2, z2))
     keep = valid.reshape(batch)
     return ProjPoint(*(f.select(keep, a, o) for a, o in zip(added, acc)))
@@ -363,7 +379,7 @@ def ec_wave_add_g2_plain(ops: "CurveOps", acc: ProjPoint, rows, neg, valid) -> P
     (n, 6L): row i = [x0 | x1 | y0 | y1 | z0 | z1 limbs] of lane i's point
     (the leaf order of the element-major point table); neg, valid (n,) bool.
     Negate, `ec_add_g2_plain`, select."""
-    ln = ops.lane
+    ln = _PlainFq2Lane(ops.lane.f)
     L = ln.f.L
     batch = ln.batch_shape(acc.x)
     t = rows.t()

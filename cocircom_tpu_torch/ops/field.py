@@ -20,8 +20,12 @@ Representation (decided once, here):
 CUDA tensor and takes ``mont_mul_plain`` only for a CPU tensor.  The plain
 version works on 16-bit limbs in int64 the way the JAX package does:
 schoolbook product into deferred columns (< 2^37), full-width REDC, one
-conditional subtraction.  add / sub / neg / select are plain torch ops on
-either device.
+conditional subtraction.  ``add`` / ``sub`` (and ``neg``, a sub from
+zero) launch the ``field_add`` kernel (csrc/field_add.cu) for CUDA int32
+limbs and take ``add_plain`` / ``sub_plain`` (int64 carry chains) only for
+CPU tensors.  The plain versions of the other kernels call those two by
+name, so they stay plain torch on the card too.  select and the
+reductions' column sums are plain torch ops on either device.
 
 Ground truth: cocircom_tpu_torch.fields.params.HostField (python ints).
 """
@@ -186,6 +190,29 @@ def _mul_const_cols16(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     2^32, far below 2^53."""
     flat = x.reshape(x.shape[0], -1).to(torch.float64)
     return (t @ flat).to(torch.int64).reshape((t.shape[0],) + tuple(x.shape[1:]))
+
+
+def _on_card(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether an add or sub of these limb tensors takes the CUDA kernel:
+    int32 limbs, either on the card (the kernel then checks both are)."""
+    return (a.is_cuda or b.is_cuda) and a.dtype == b.dtype == torch.int32
+
+
+def add_plain(f: "Field", a: torch.Tensor, b: torch.Tensor, out=None) -> torch.Tensor:
+    """(a + b) mod p on (L, *batch) int32 limbs, either device, in plain
+    torch ops (two int64 carry chains): the same function as the CUDA
+    kernel `field_add`.  One operand may broadcast; `out` as `Field.add`."""
+    return f._by_pieces(f._add_chains, a, b, out)
+
+
+def sub_plain(f: "Field", a: torch.Tensor, b: torch.Tensor, out=None) -> torch.Tensor:
+    """(a - b) mod p as `add_plain`: the CUDA kernel `field_add`'s sub."""
+    return f._by_pieces(f._sub_chains, a, b, out)
+
+
+def neg_plain(f: "Field", a: torch.Tensor) -> torch.Tensor:
+    """-a mod p in plain torch ops: `sub_plain` from zero."""
+    return sub_plain(f, torch.zeros_like(a), a)
 
 
 def mont_mul_plain(f: "Field", a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -383,15 +410,30 @@ class Field:
         return self._by_pieces(self._sub, a, b, out)
 
     def _add(self, a, b):
-        """(a + b) mod p.  The second chain is a + b - p in two's complement
-        (a + b + ~p + 1): its carry-out says a + b >= p."""
+        """(a + b) mod p: the `field_add` kernel on the card, else the
+        plain chains."""
+        if _on_card(a, b):
+            return kernels.field_add(a, b, self.kconsts)
+        return self._add_chains(a, b)
+
+    def _sub(self, a, b):
+        """(a - b) mod p: the `field_add` kernel on the card, else the
+        plain chains."""
+        if _on_card(a, b):
+            return kernels.field_add(a, b, self.kconsts, sub=True)
+        return self._sub_chains(a, b)
+
+    def _add_chains(self, a, b):
+        """(a + b) mod p in plain torch.  The second chain is a + b - p in
+        two's complement (a + b + ~p + 1): its carry-out says a + b >= p."""
         s = u64(a) + u64(b)
         limbs, carry = self._two_chains(s, s + self._col(self._negp32, s.dim()))
         return torch.where((carry[1] != 0)[None], limbs[1], limbs[0]).to(torch.int32)
 
-    def _sub(self, a, b):
-        """(a - b) mod p.  First chain a + ~b + 1 (carry-out says a >= b),
-        second the same plus p, taken when the first borrowed."""
+    def _sub_chains(self, a, b):
+        """(a - b) mod p in plain torch.  First chain a + ~b + 1 (carry-out
+        says a >= b), the second the same plus p, taken when the first
+        borrowed."""
         d = u64(a) + (u64(b) ^ M32) + self._col(self._one_col, a.dim())
         limbs, carry = self._two_chains(d, d + self._col(self._p32, d.dim()))
         return torch.where((carry[0] != 0)[None], limbs[0], limbs[1]).to(torch.int32)

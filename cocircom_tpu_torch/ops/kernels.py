@@ -37,7 +37,7 @@ import torch
 
 # every counted entry point; one .cu (and one shared library) each
 KERNELS = ("mont_mul", "ntt_butterfly", "ntt_columns", "ec_add", "ec_madd", "ec_wave_add",
-           "ec_add_g2", "ec_wave_add_g2")
+           "ec_add_g2", "ec_wave_add_g2", "field_add")
 LIMBS = (8, 12)  # 32-bit limbs per element the kernels are instantiated for
 # The function of the JAX package (cocircom_tpu/ops/pallas_*.py) that each
 # kernel takes the place of; the G2 add and the G2 wave replace XLA
@@ -51,6 +51,7 @@ REPLACES = {
     "ec_wave_add": "pallas_curve.ec_wave_add_pallas",
     "ec_add_g2": None,
     "ec_wave_add_g2": None,
+    "field_add": None,
 }
 
 
@@ -230,6 +231,8 @@ _ARGTYPES = {
     "ec_add_g2": [_VP, _VP, _LL, _I, _I] + _TAIL,
     # acc[6] (host array of device pointers, updated in place), rows, neg, valid, n
     "ec_wave_add_g2": [_VP] * 4 + [_LL] + _TAIL,
+    # a, b, out, n, a_bcast, b_bcast, sub
+    "field_add": [_VP, _VP, _VP, _LL, _I, _I, _I] + _TAIL,
 }
 
 
@@ -332,6 +335,20 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, consts) -> torch.Tensor:
     if n:
         _launch("mont_mul", L, consts, a.device, a2.data_ptr(), b2.data_ptr(),
                 out.data_ptr(), n, a_bc, b_bc)
+    return out
+
+
+def field_add(a: torch.Tensor, b: torch.Tensor, consts, sub: bool = False) -> torch.Tensor:
+    """a + b (or a - b) mod p elementwise over broadcast (L, *batch) limbs."""
+    L = _same_limbs("field_add", (_check("field_add", a, "a"), _check("field_add", b, "b")))
+    batch = broadcast_shapes(a.shape[1:], b.shape[1:])
+    a2, a_bc = _flat_or_single(a, batch)
+    b2, b_bc = _flat_or_single(b, batch)
+    out = torch.empty((L,) + tuple(batch), dtype=torch.int32, device=a.device)
+    n = out.numel() // L
+    if n:
+        _launch("field_add", L, consts, a.device, a2.data_ptr(), b2.data_ptr(),
+                out.data_ptr(), n, a_bc, b_bc, int(sub))
     return out
 
 

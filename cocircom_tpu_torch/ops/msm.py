@@ -32,9 +32,11 @@ accumulator; reduction and Horner run once at the end.
 
 Share-local over public points, so the same engine serves Plain and REP3.
 Each call opens `msm.*` spans (utils/trace.py): `msm.msm` around the call,
-and inside it, a chunk at a time, `msm.prepare` (digits and sort),
-`msm.affine`, `msm.table`, `msm.waves` (the chunk's whole wave loop), then
-`msm.reduce`, `msm.horner` and, on the mixed-add path, `msm.correction`.
+and inside it, a chunk at a time, `msm.affine` (the chunk's affine rows,
+made once for all the call's scalar vectors; on the complete-add path its
+element-major rows, under `msm.table`), then for each vector `msm.prepare`
+(digits and sort), `msm.table`, `msm.waves` (the chunk's whole wave loop);
+then `msm.reduce`, `msm.horner` and, on the mixed-add path, `msm.correction`.
 """
 
 from __future__ import annotations
@@ -374,18 +376,20 @@ class MSM:
         _, nb, S = _top_window_packing(nbits, c)
         self.last_waves = 0
         with span("msm.msm"):
-            accs = [self._accumulate(points, s, nbits, c, madd) for s in scalars]
+            accs = self._accumulate(points, scalars, nbits, c, madd)
             acc = pmap(lambda *cs: torch.stack(cs, dim=-1), *accs)
             with span("msm.reduce"):
                 wsums = self._reduce(acc, nb, S)
             with span("msm.horner"):
                 return self._horner(wsums, c)
 
-    def _accumulate(self, points: ProjPoint, scalar_limbs, nbits: int, c: int,
-                    madd: bool) -> ProjPoint:
-        """All waves of one scalar vector: the (nw, K+1, T) bucket
-        accumulators in homogeneous coordinates."""
-        n = scalar_limbs.shape[1]
+    def _accumulate(self, points: ProjPoint, scalars: list, nbits: int, c: int,
+                    madd: bool) -> list:
+        """All waves of each scalar vector over the same points: a (nw, K+1,
+        T) bucket accumulator a vector, in homogeneous coordinates.  A
+        chunk's point rows (affine or element-major) are made once for all
+        the vectors."""
+        n = scalars[0].shape[1]
         chunk = 1 << self.CHUNK_LOG
         K = 1 << (c - 1)
         nw = -(-(nbits + 1) // c)
@@ -394,41 +398,46 @@ class MSM:
         shape = (nw, K + 1, T)
         if madd:
             Dx, Dy = self._init_affine()
-            acc = ProjPoint(
+            accs = [ProjPoint(
                 ln.broadcast_to(Dx[:, None, None, None], shape).contiguous(),
                 ln.broadcast_to(Dy[:, None, None, None], shape).contiguous(),
                 ln.one(shape).contiguous(),
-            )
+            ) for _ in scalars]
         else:
-            acc = self.ops.identity(shape)
+            accs = [self.ops.identity(shape) for _ in scalars]
         for lo in range(0, n, chunk):
             hi = min(lo + chunk, n)
             pts = pmap(lambda a: a[..., lo:hi], points)
-            sl = scalar_limbs[:, lo:hi]
             if madd:
-                with span("msm.prepare"):
-                    scatter_idx, astart, aend, n_waves = self._prepare_madd(sl, nbits, c)
                 with span("msm.affine"):
                     pts_em2 = self._affine_em(pts)
-                with span("msm.table"):
-                    table = self._table_rows(pts_em2, scatter_idx)
-                del pts_em2
-                with span("msm.waves"):
-                    n_super = -(-int(n_waves.item()) // T)
-                    for w in range(n_super):
-                        acc = self._wave_step_madd(table, astart, aend, w, acc)
             else:
-                with span("msm.prepare"):
-                    digits, order, sortedb, bucket_start, n_waves = self._prepare(sl, nbits, c)
                 with span("msm.table"):
                     pts_em = self._emajor(pts)
-                with span("msm.waves"):
-                    n_super = -(-int(n_waves.item()) // T)
-                    for w in range(n_super):
-                        acc = self._wave_step(pts_em, digits, order, sortedb,
-                                              bucket_start, w, acc)
-            self.last_waves += n_super
-        return self._jac_to_homog(acc) if madd else acc
+            for i, s in enumerate(scalars):
+                sl = s[:, lo:hi]
+                acc = accs[i]
+                if madd:
+                    with span("msm.prepare"):
+                        scatter_idx, astart, aend, n_waves = self._prepare_madd(sl, nbits, c)
+                    with span("msm.table"):
+                        table = self._table_rows(pts_em2, scatter_idx)
+                    with span("msm.waves"):
+                        n_super = -(-int(n_waves.item()) // T)
+                        for w in range(n_super):
+                            acc = self._wave_step_madd(table, astart, aend, w, acc)
+                    del table
+                else:
+                    with span("msm.prepare"):
+                        digits, order, sortedb, bucket_start, n_waves = self._prepare(sl, nbits, c)
+                    with span("msm.waves"):
+                        n_super = -(-int(n_waves.item()) // T)
+                        for w in range(n_super):
+                            acc = self._wave_step(pts_em, digits, order, sortedb,
+                                                  bucket_start, w, acc)
+                accs[i] = acc
+                self.last_waves += n_super
+        return [self._jac_to_homog(a) for a in accs] if madd else accs
 
 
 @functools.lru_cache(maxsize=None)

@@ -30,14 +30,14 @@ import torch
 from ..fields.params import HostField
 from ..utils.trace import spanned
 from . import kernels
-from .field import Field, mont_mul_plain
+from .field import Field, add_plain, mont_mul_plain, sub_plain
 
 
 def butterfly_plain(f: Field, e, o, w):
     """(e + o w, e - o w) mod p in plain torch: the same function as the
     CUDA kernel `ntt_butterfly`."""
     t = mont_mul_plain(f, o, w)
-    return f.add(e, t), f.sub(e, t)
+    return add_plain(f, e, t), sub_plain(f, e, t)
 
 
 @functools.lru_cache(maxsize=None)

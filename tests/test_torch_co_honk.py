@@ -311,3 +311,38 @@ def test_bitonic_network_sorts():
                     if keys[i] > keys[j]:
                         keys[i], keys[j] = keys[j], keys[i]
             assert keys == sorted(keys)
+
+
+def test_noir_cli_file_setup_round_trip(chain, tmp_path, capsys, monkeypatch):
+    """--crs file over .dat files written by write_g1_dat / write_g2_dat
+    (the monomial setup of TestCrs's tau): three REP3 generate-proof
+    parties commit by MSM over their shares (PointCrs, which holds no tau),
+    create-vk by the plain driver's MSM (FileCrs with driver_msm, the key's
+    27 commitments one engine call); the proof is the JAX package's plain
+    proof over TestCrs and verifies under that vk."""
+    from cocircom_tpu_torch.honk.crs import generate_test_setup_g1, write_g1_dat, write_g2_dat
+    from torch_port_util import small_msm_engines
+
+    restore = small_msm_engines(monkeypatch)
+    d = str(tmp_path)
+    crs = TestCrs()
+    write_g1_dat(tmp_path / "g1.dat", generate_test_setup_g1(64, crs.tau))
+    write_g2_dat(tmp_path / "g2.dat", crs.g2_x)
+    setup = ["--crs", "file", "--crs-g1", f"{d}/g1.dat", "--crs-g2", f"{d}/g2.dat"]
+    c, abi, w, want = chain
+    (tmp_path / "chain.json").write_text(acir_program_json(c, abi))
+    (tmp_path / "chain.gz").write_bytes(write_witness_stack([(0, dict(enumerate(w)))]))
+    assert _run_cli(["--device", "cpu", "split-witness", "--witness", f"{d}/chain.gz",
+                     "--circuit", f"{d}/chain.json", "--out-dir", f"{d}/sw"]) == (0, "")
+    _parties(monkeypatch, lambda i, net: [
+        "generate-proof", "--witness", f"{d}/sw/witness.gz.{i}.shared",
+        "--circuit", f"{d}/chain.json", "--net-config", net, *setup, "--out", f"{d}/proof.{i}"])
+    proofs = [(tmp_path / f"proof.{i}").read_bytes() for i in range(3)]
+    assert proofs[0] == proofs[1] == proofs[2]
+    assert reference_pins.honk_digest(proofs[0]) == want
+    assert _run_cli(["--device", "cpu", "create-vk", "--circuit", f"{d}/chain.json", *setup,
+                     "--out", f"{d}/vk.json"]) == (0, "")
+    restore()
+    capsys.readouterr()
+    assert _run_cli(["verify", "--proof", f"{d}/proof.0", "--vk", f"{d}/vk.json"]) == (0, "")
+    assert "verification: OK" in capsys.readouterr().out

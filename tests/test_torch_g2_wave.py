@@ -137,8 +137,8 @@ def test_msm_g2_waves_run_one_fused_wave_each(monkeypatch):
     monkeypatch.setattr(port_msm, "ec_wave_add_g2", wave)
     monkeypatch.setattr(CurveOps, "add", spy("add", CurveOps.add))
     monkeypatch.setattr(CurveOps, "select", spy("select", CurveOps.select))
-    acc = eng._accumulate(ops.encode_points([h2(k) for k in ks]), fr.to_limbs(sc), 254, 4,
-                          madd=False)
+    [acc] = eng._accumulate(ops.encode_points([h2(k) for k in ks]), [fr.to_limbs(sc)], 254, 4,
+                            madd=False)
     assert eng.last_waves > 0
     assert calls == {"wave": eng.last_waves, "add": 0, "select": 0}
     assert all(c.shape == (8, 64, 9, 2) for c in leaves(acc))   # (L, windows, K + 1, T)
